@@ -23,8 +23,8 @@ class BuildNative(build_py):
 setup(
     name="spmv_vector_cache_tpu",
     version="0.1.0",
-    description=("TPU-native sparse linear-algebra library "
-                 "(SpMV/SpMM/SpGEMM/trisolve with Pallas kernels, "
+    description=("Sparse linear-algebra library for NVIDIA GPUs "
+                 "(SpMV/SpMM/SpGEMM/trisolve executors in JAX, "
                  "shard_map scaling, and a native host runtime)"),
     packages=find_packages(include=["spmv_vector_cache_tpu*"]),
     package_data={"spmv_vector_cache_tpu.native": ["*.cpp", "*.h",

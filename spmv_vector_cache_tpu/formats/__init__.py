@@ -1,6 +1,5 @@
-from . import (analysis, cached, containers, convert, dia, packed,  # noqa: F401
+from . import (analysis, cached, containers, convert, dia,  # noqa: F401
                plan, plan_io, refio)
-from .packed import PackedPlan, build_packed_plan  # noqa: F401
 from .cached import (CachedPlan, CooTail, build_cached_plan,  # noqa: F401
                      column_frequency, coo_tail_from_csr,
                      hot_set_coverage)

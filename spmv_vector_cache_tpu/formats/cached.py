@@ -7,17 +7,17 @@ memory latency (``chisel/cache-new/NoWMVectorCache.scala``,
 ``chisel/frontend/SpMVFrontendBufferSel.scala:15-300`` — route each
 operand by ``id < ocmDepth`` to the on-chip pipe, everything else to the
 DDR pipe).  In the CSR dual the irregularly-accessed vector is **x**, and
-the TPU has no hardware cache to lean on — but the *plan* can measure
-column popularity up front and split the matrix by it:
+the plan can do what the reference's cache does: measure column
+popularity up front and split the matrix by it:
 
 * **hot** nonzeros — those in the most-referenced columns — are remapped
-  onto a compact column domain of at most ``max_hot`` entries.  The
-  remapped submatrix has a tiny total column span, so the fast window /
-  resident kernels apply regardless of the original matrix's locality.
-  One small ``x[hot_cols]`` gather per apply stands in for the cache
-  fill (the init phase of ``HardwareSpMVNewCache.cpp:46-56``).
-* **cold** nonzeros — the popularity tail — run on the deep select-tree
-  kernel (the BufferNone / random-access-port analog,
+  onto a compact column domain of at most ``max_hot`` entries, so their
+  gathers read a small x that stays cache-resident regardless of the
+  original matrix's locality.  One small ``x[hot_cols]`` gather per apply
+  stands in for the cache fill (the init phase of
+  ``HardwareSpMVNewCache.cpp:46-56``).
+* **cold** nonzeros — the popularity tail — gather from the full x (the
+  BufferNone / random-access-port analog,
   ``SpMVFrontendBufferNone.scala:9-175``): slower per element, but they
   are few when popularity is skewed.
 
@@ -38,7 +38,7 @@ import jax
 import numpy as np
 
 from .containers import CSR
-from .plan import SellPlan, _as_csr, _cdiv
+from .plan import SellPlan, _as_csr
 
 Array = Any
 
@@ -56,7 +56,7 @@ class CachedPlan:
     order)."""
 
     hot: SellPlan
-    cold: Optional[Any]       # SellPlan, or PackedPlan for ring semirings
+    cold: Optional[Any]       # SellPlan, CachedPlan or CooTail
     hot_cols: Array                    # (hot_size,) int32, ascending
     shape: Tuple[int, int]
     coverage: float                    # hot nnz / total nnz (hit rate)
@@ -86,13 +86,11 @@ class CachedPlan:
 class CooTail:
     """Tiny-residue COO: ``y[rows_idx[i]] (+)= vals[i] (x) x[cols[i]]``.
 
-    Below ~64K nonzeros the XLA element gather + segment scatter
-    (~13 ns/nnz) beats every tiled kernel's fixed machinery (a SELL plan
-    still allocates one lane per *matrix row*, a packed plan one visit
-    per (row-window, chunk) cell).  This is the representation for cache
-    residues — the trickle of accesses past the last tier, priced like
-    the reference's per-operand DDR fallback
-    (``SpMVFrontendBufferNone.scala:9-175``)."""
+    For small residues one element gather + segment scatter beats a
+    tiled layout, which still allocates one lane per *matrix row*.  This
+    is the representation for cache residues — the trickle of accesses
+    past the last tier, priced like the reference's per-operand DDR
+    fallback (``SpMVFrontendBufferNone.scala:9-175``)."""
 
     vals: Array               # (nnz,) value dtype
     cols: Array               # (nnz,) int32
@@ -155,62 +153,40 @@ def hot_set_coverage(csr: CSR, sizes=(256, 512, 1024, 2048, 4096)
     return {int(k): float(cum[min(k, len(cum)) - 1]) / nnz for k in sizes}
 
 
-#: rough per-nnz throughput model (Gnnz/s, measured on a v5e) used to
-#: size the hot set.  Window and resident kernels are both K-leaf select
-#: trees over the hot domain's 128-lane blocks, so their rate falls as
-#: ~C/K (window K=2 measured 88, K=16 measured 10.3, resident NB=16
-#: measured 14.5) up to the streaming-bound peak; the cold remainder
-#: runs a deeper cache level or the packed kernel (the ocmDepth sweep's
-#: economics, ``gen-newcache.sh:3``)
-_RATE_PEAK = 90.0
-_RATE_C = 200.0
-_RATE_COLD = 2.0
-
-
 def build_cached_plan(a, *, max_hot: int = 16384,
                       min_coverage: float = 0.5,
                       value_dtype=np.float32,
                       max_window_blocks: int = 16,
                       lane_rows: int = 128, positions: int = 8,
                       pad_value: float = 0.0,
-                      allow_packed: bool = True,
                       levels: int = 3) -> Optional[CachedPlan]:
-    """Split by column popularity; None when the split would not pay.
+    """Split by column popularity; None when the matrix has no working
+    set (the ``max_hot`` most popular columns cover less than
+    ``min_coverage`` of the nonzeros, or less than twice their share of
+    the live columns).
 
-    The hot set is a power-of-two-ish prefix of the popularity order
-    (capped at ``max_hot``) picked by a throughput model: windowable
-    prefixes (<= 2048 columns) run ~4x faster per nonzero than
-    resident-sized ones (<= 8192), so the model trades hot-kernel speed
-    against cold-tail volume.  The cold tail recurses into up to
-    ``levels - 1`` further cache levels (the popularity tail of a
-    power-law is itself power-law), ending in a packed plan — or, when
-    the tail is too small to amortize the packed kernel's per-cell
-    sweep, a plain windowless SELL plan (deep/stream: bounded cost at
-    tiny sizes)."""
+    The hot set is the ``max_hot`` most popular columns (fewer when fewer
+    are populated): a compact x of that size stays cache-resident, so the
+    largest set covers the most nonzeros at the cheap gather cost.
+    Whether the split pays against the plain layout is the cost model's
+    call (``formats/costmodel.py``; ``plan.auto_plan`` compares).  The
+    cold tail recurses into up to ``levels - 1`` further cache levels
+    (the popularity tail of a power-law is itself power-law), ending in a
+    plain SELL plan."""
     csr = _as_csr(a)
     rows, cols = csr.shape
     if csr.nnz == 0 or cols <= max_hot:
         return None
     counts = column_frequency(csr)
     order = np.argsort(counts, kind="stable")[::-1]
-    cum = np.cumsum(counts[order])
-    nnz = int(cum[-1])
-    sizes = [h for h in (128, 256, 512, 1024, 2048, 4096, 8192, 16384)
-             if h <= max_hot and h <= cols]
-    cov = {h: float(cum[h - 1]) / nnz for h in sizes}
-    if cov[sizes[-1]] < min_coverage:
-        return None
-
-    def est_time(h):
-        rate = min(_RATE_PEAK, _RATE_C / max(1, h // 128))
-        return cov[h] / rate + (1.0 - cov[h]) / _RATE_COLD
-
-    hot_size = min(sizes, key=est_time)
-    # caching must pay: if the best split is not clearly faster than
-    # running everything at the cold rate, there is no working set
-    # (uniform popularity) and the caller's packed/deep path is the
-    # right plan
-    if est_time(hot_size) >= 0.6 / _RATE_COLD:
+    live = int(np.count_nonzero(counts))
+    hot_size = min(max_hot, live)
+    nnz = int(counts.sum())
+    coverage = float(counts[order[:hot_size]].sum()) / nnz
+    if coverage < min_coverage or (
+            hot_size < live and coverage < 2.0 * hot_size / live):
+        # too little covered, or no column much more popular than the
+        # average live one: no working set to cache
         return None
     hot_ids = np.sort(order[:hot_size]).astype(np.int64)
 
@@ -236,10 +212,7 @@ def build_cached_plan(a, *, max_hot: int = 16384,
     kw = dict(value_dtype=value_dtype, lane_rows=lane_rows,
               positions=positions, max_window_blocks=max_window_blocks,
               pad_value=pad_value)
-    # the compact domain makes the fast kernels apply by construction:
-    # window (span <= hot blocks <= 16) or resident (NB <= 64)
-    hot_plan = _auto_sell_plan(hot_csr, allow_cached=False,
-                               allow_packed=False, **kw)
+    hot_plan = _auto_sell_plan(hot_csr, allow_cached=False, **kw)
     cold_plan = None
     if cold_nnz:
         cold_csr = CSR(
@@ -247,27 +220,24 @@ def build_cached_plan(a, *, max_hot: int = 16384,
             indptr=np.concatenate(([0], np.cumsum(lens - hot_lens))
                                   ).astype(np.int32),
             shape=(rows, cols))
-        cold_plan = _cold_plan(cold_csr, kw, allow_packed, levels)
+        cold_plan = _cold_plan(cold_csr, kw, levels)
     return CachedPlan(hot=hot_plan, cold=cold_plan,
                       hot_cols=hot_ids.astype(np.int32),
                       shape=(rows, cols),
                       coverage=float(nnz - cold_nnz) / nnz)
 
 
-#: a tail whose *distinct* columns fit this many entries collapses into
-#: one full-coverage compact tier (resident kernel over the remapped
-#: domain, no residual) instead of further levels; capped at the
-#: resident strategy's range — beyond it the deep kernel's per-block
-#: cost loses to another popularity split (measured: a 13K-column
-#: full-cover tier ran 4.4 vs the recursive split's 8.3 Gnnz/s)
+#: a working set of at most this many distinct columns collapses into
+#: one full-coverage compact tier (no residual) instead of further
+#: levels: its x (32 KB) stays cache-resident
 FULL_COVER_MAX = 8192
 
 
 def _compact_full_cover(csr: CSR, kw: dict) -> Optional[CachedPlan]:
     """One tier covering 100%: remap every nonzero column into a compact
-    domain.  Pays whenever the distinct-column count is small, no matter
-    how the popularity is distributed (the degenerate multi-level case:
-    the whole working set fits the last tier)."""
+    domain.  Applies whenever the distinct-column count is small, no
+    matter how the popularity is distributed (the degenerate multi-level
+    case: the whole working set fits the last tier)."""
     from .plan import _auto_sell_plan
 
     counts = column_frequency(csr)
@@ -283,28 +253,23 @@ def _compact_full_cover(csr: CSR, kw: dict) -> Optional[CachedPlan]:
                   indices=remap[indices].astype(np.int32),
                   indptr=np.asarray(csr.indptr),
                   shape=(rows, int(nz_cols.shape[0])))
-    hot_plan = _auto_sell_plan(hot_csr, allow_cached=False,
-                               allow_packed=False, **kw)
+    hot_plan = _auto_sell_plan(hot_csr, allow_cached=False, **kw)
     return CachedPlan(hot=hot_plan, cold=None,
                       hot_cols=nz_cols.astype(np.int32),
                       shape=(rows, cols), coverage=1.0)
 
 
-def _cold_plan(cold_csr: CSR, kw: dict, allow_packed: bool, levels: int):
+def _cold_plan(cold_csr: CSR, kw: dict, levels: int):
     """Plan the popularity tail.
 
-    A power-law tail is itself power-law, so another cache level keeps
-    winning until the remainder is tiny (the multi-level analog of the
+    A power-law tail is itself power-law, so another cache level can keep
+    winning until the remainder is small (the multi-level analog of the
     reference's single BRAM tier).  A tail whose distinct columns fit
-    one tier collapses into a full-coverage compact level; tiny residues
-    run as :class:`CooTail`; a sizable remainder runs packed when its
-    volume amortizes the packed kernel's per-cell output sweep (~rows x
-    chunks output elements), else a plain windowless SELL plan."""
-    from .plan import _auto_sell_plan, _cdiv
+    one tier collapses into a full-coverage compact level; small residues
+    run as :class:`CooTail`; the rest as a plain SELL plan."""
+    from .plan import _auto_sell_plan
 
     if cold_csr.nnz <= (1 << 20):
-        # big tails keep recursing (a popularity split still beats one
-        # deep tier there); modest ones collapse outright
         fc = _compact_full_cover(cold_csr, kw)
         if fc is not None:
             return fc
@@ -312,18 +277,7 @@ def _cold_plan(cold_csr: CSR, kw: dict, allow_packed: bool, levels: int):
         return coo_tail_from_csr(cold_csr, value_dtype=kw["value_dtype"])
     if levels > 1:
         cp = build_cached_plan(cold_csr, min_coverage=0.3,
-                               allow_packed=allow_packed,
                                levels=levels - 1, **kw)
         if cp is not None:
             return cp
-    rows, cols = cold_csr.shape
-    if allow_packed:
-        nwin = max(1, _cdiv(rows, 8192))
-        nch = max(1, _cdiv(cols, 128 * 128))
-        if cold_csr.nnz >= 100 * nwin * nch:
-            from .packed import build_packed_plan
-
-            return build_packed_plan(cold_csr,
-                                     value_dtype=kw["value_dtype"])
-    return _auto_sell_plan(cold_csr, allow_cached=False,
-                           allow_packed=False, **kw)
+    return _auto_sell_plan(cold_csr, allow_cached=False, **kw)

@@ -1,13 +1,10 @@
-"""Chunked SELL plans: skewed rows without the scatter epilogue.
+"""Chunked SELL plans: skewed rows without the sub-row scatter epilogue.
 
-The round-4 planner served skewed-row matrices (power-law lengths,
-bounded column spans — the webbase/scircuit degree profile) with
-split+sigma+striping SELL plans whose sub-row merge was an **unsorted
-1-D segment scatter** — measured 2.8 ms for 328K slots on a v5e
-(probes/probe_powerlaw.py), 75% of the whole apply, because XLA lowers
-any 1-D scatter (sorted or not — probes/probe_chunk8.py) to a serial
-per-element loop on TPU.  The reference has no such cliff: its streaming
-dataflow runs one operand per cycle for any structure
+Split+sigma SELL plans serve skewed-row matrices (power-law lengths —
+the webbase/scircuit degree profile) by splitting long rows into
+sub-rows, whose merge back into y is an **unsorted 1-D segment scatter**.
+The reference has no such epilogue: its streaming dataflow runs one
+operand per cycle for any structure
 (``chisel/backend/SpMVBackend.scala:59-135``).
 
 This module removes the scatter *by layout* (the library's standing
@@ -17,10 +14,10 @@ at plan time):
 * **light rows** (< ~256 nnz) are length-sorted within aligned windows
   of 1024 (SELL-sigma) and bound to lanes in 128-row *blocks*: a tile
   holds up to 8 nonzeros per lane for the block's rows, so the row
-  reduction is the sublane fold and the sub-row merge IS the existing
-  sorted tile->slice segment reduction (measured ~100 us for 11K tiles
-  vs 2.8 ms for the scatter it replaces); the final un-permutation of
-  the row sort is one in-block Pallas gather pass (``ops/lane_perm.py``);
+  reduction is the tile's position reduction and the sub-row merge IS
+  the tile -> block segment reduction; the final un-permutation of the
+  row sort never leaves an aligned 1024-row window
+  (``ops.spmv_exec.lane_unpermute``);
 * **heavy rows** (the pareto tail — any per-block-max layout collapses
   fill to a few %) pack up to 1024 column-consecutive nonzeros of ONE
   row per tile; the lane axis folds into the row total after a sorted
@@ -28,18 +25,15 @@ at plan time):
   one short sorted segment sum;
 * tiles are **greedily packed against column windows** chosen per tile
   from ``bucket_ks``: at each unprocessed column the packer prices
-  every window size K (slots covered vs the kernel's K-block gather
-  ladder) and takes the best — dense stretches come out as full tiles
-  at small K, sparse tails as wide-window tiles, and nothing is ever
-  spilled (the next window simply starts at the next column).  Tiles
-  of the same K share one kernel launch over a unified segment space
-  ([0, num_blocks) = light blocks, then heavy rows) — the per-matrix
-  variant selection of ``HWSpMVFactory.cpp:20-38``, done per tile;
+  every window size K (slots covered vs a K-block window) and takes the
+  best — dense stretches come out as full tiles at small K, sparse
+  tails as wide-window tiles, and nothing is ever spilled (the next
+  window simply starts at the next column).  Tiles of the same K form
+  one bucket over a unified segment space ([0, num_blocks) = light
+  blocks, then heavy rows) — the per-matrix variant selection of
+  ``HWSpMVFactory.cpp:20-38``, done per tile;
 * duplicate (row, col) entries are merged at plan time (one slot, one
   stream byte each, same y).
-
-Built for the VERDICT r4 weak-#1 matrix class (power-law rows, bounded
-spans), where the committed round-4 number was 1.04 Gnnz/s.
 """
 
 from __future__ import annotations
@@ -55,8 +49,8 @@ from .plan import (TILES_PER_STEP, PlanStats, SellPlan, _as_csr, _cdiv,
 
 Array = Any
 
-#: aligned row-sort window; the lane-unpermute kernel's one-block reach
-#: (ops/lane_perm.py) requires exactly this value
+#: aligned row-sort window; the lane un-permutation's reach
+#: (ops.spmv_exec.lane_unpermute) requires exactly this value
 CHUNK_SIGMA = 1024
 
 #: default span buckets, as window block counts K
@@ -65,12 +59,6 @@ BUCKET_KS = (4, 16, 64)
 #: rows with more than heavy_parts*8 nonzeros take the heavy
 #: (row-packed) layout
 HEAVY_PARTS = 32
-
-#: packer cost model: ns-per-tile ~ _COST_A + _COST_B * K (stream +
-#: fixed vs gather-ladder passes, from the round-5 probes); only the
-#: RATIO shapes packing decisions
-_COST_A = 15.0
-_COST_B = 5.2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,11 +85,10 @@ class SubwinPlan:
     heavy row (always-full fill), laid rank-major: sublane s covers
     ranks [128s, 128s+128) — 128 consecutive sorted columns, so each
     sublane needs only a narrow ``W``-block x window of its own
-    (``bases[t, s]``).  The gather ladder is W passes where W tracks the
-    row's LOCAL density (dense stretch: W=1; ~8-col gaps: W=9), instead
-    of paying the whole row span K like a shared-window tile — the
-    measured difference on the powerlaw tail is ~7x.  ``tile_seg`` maps
-    tiles to the plan's unified segment space (nondecreasing).
+    (``bases[t, s]``); W tracks the row's LOCAL density (dense stretch:
+    W=1; ~8-col gaps: W=9) instead of the whole row span K of a
+    shared-window tile.  ``tile_seg`` maps tiles to the plan's unified
+    segment space (nondecreasing).
     """
 
     vals: Array          # (T, 8, 128)
@@ -147,9 +134,9 @@ class ChunkPlan:
     over a unified segment space ([0, num_blocks) = light row blocks,
     [num_blocks, num_blocks+num_heavy) = heavy rows; each carries a
     correct ``row_map``, so ``validate_plan`` and the slow reference
-    fixup apply unchanged).  The fast path sums the per-segment slice
-    reductions, un-permutes the light part with ``perm_idx`` in one
-    Pallas pass, and lane-folds the heavy part.
+    fixup apply unchanged).  The executor sums the per-segment slice
+    reductions, un-permutes the light part with ``perm_idx``, and
+    lane-folds the heavy part.
     """
 
     buckets: Tuple[SellPlan, ...]
@@ -199,7 +186,9 @@ def _pack_windows(cols: np.ndarray, lanes: np.ndarray,
     """Greedy window partition of one segment's column-sorted slots.
 
     At each unprocessed column, price every window size K (slots
-    covered / (tiles needed * (A + B*K))) and take the best.  Returns
+    covered per tile needed) and take the best; ties go to the smaller
+    K.  The executors gather from the full x, so a tile costs the same
+    at every K.  Returns
     per-slot (tile ordinal within segment, sublane) plus per-tile
     (window base block, K).  ``lanes`` fixes each slot's lane (light
     blocks); slots of a full lane spill to a same-window companion
@@ -226,7 +215,7 @@ def _pack_windows(cols: np.ndarray, lanes: np.ndarray,
                 lc = np.bincount(lanes[pos:pos + cnt], minlength=R)
                 tiles_needed = max(1, _cdiv(int(lc.max()), lane_cap))
                 take = cnt
-            eff = cnt / (tiles_needed * (_COST_A + _COST_B * K))
+            eff = cnt / tiles_needed
             cand = (eff, K, take, tiles_needed)
             if best is None or cand[0] > best[0]:
                 best = cand
@@ -275,8 +264,8 @@ def build_chunk_plan(a, *, value_dtype=np.float32,
     must pass False; ``auto_plan`` does).
     """
     if sigma != CHUNK_SIGMA:
-        raise ValueError(f"sigma must be {CHUNK_SIGMA} (the lane-perm "
-                         f"kernel's reach); got {sigma}")
+        raise ValueError(f"sigma must be {CHUNK_SIGMA} (the lane "
+                         f"un-permutation's reach); got {sigma}")
     csr = _as_csr(a)
     rows, cols_n = csr.shape
     indptr = np.asarray(csr.indptr, dtype=np.int64)
@@ -484,11 +473,9 @@ def build_chunk_plan(a, *, value_dtype=np.float32,
         new_tid[tids] = np.arange(T0)
         K = int(tk[tids].max())
 
-        step = max(TILES_PER_STEP,
-                   min(512, (3 << 20) // (4096 + K * 512) // 8 * 8,
-                       _cdiv(T0, TILES_PER_STEP) * TILES_PER_STEP))
+        step = TILES_PER_STEP
         T = _cdiv(T0, step) * step
-        groups = step // TILES_PER_STEP
+        groups = 1
 
         ssel = np.flatnonzero(new_tid[slot_tile] >= 0)
         t_k = new_tid[slot_tile[ssel]]
@@ -552,10 +539,7 @@ def build_chunk_plan(a, *, value_dtype=np.float32,
             T0 = tids.size
             new_tid = np.full(n_htiles, -1, dtype=np.int64)
             new_tid[tids] = np.arange(T0)
-            step = max(TILES_PER_STEP,
-                       min(256, (3 << 20) // (6144 + W * 4096)
-                           // 8 * 8,
-                           _cdiv(T0, TILES_PER_STEP) * TILES_PER_STEP))
+            step = TILES_PER_STEP
             T = _cdiv(T0, step) * step
             ssel = np.flatnonzero(new_tid[h_slot_tile] >= 0)
             t_k = new_tid[h_slot_tile[ssel]]
@@ -599,9 +583,10 @@ def build_chunk_plan(a, *, value_dtype=np.float32,
         if res_nnz <= COO_TAIL_MAX:
             residue = coo_tail_from_csr(rcsr, value_dtype=value_dtype)
         else:
-            from .packed import build_packed_plan
+            from .plan import build_sell_plan
 
-            residue = build_packed_plan(rcsr, value_dtype=value_dtype)
+            residue = build_sell_plan(rcsr, value_dtype=value_dtype,
+                                      pad_value=pad_value)
 
     stats = ChunkStats(
         nnz=nnz_orig, num_tiles=sum(bucket_tiles),

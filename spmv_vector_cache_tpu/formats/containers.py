@@ -1,6 +1,6 @@
 """Sparse-matrix containers as JAX pytrees.
 
-TPU-native re-design of the reference's matrix layer:
+A re-design of the reference's matrix layer:
 
 * the reference holds one format, CSC with ``uint32`` indices and ``float64``
   values, zero-copy over a raw memory blob (``software/SparseMatrix.h:5-70``,
@@ -142,7 +142,7 @@ class BSR(_SparseBase):
     """Block sparse row: dense (br, bc) blocks on a CSR skeleton.
 
     ``data``: (nblocks, br, bc); ``indices``: (nblocks,) block-column ids;
-    ``indptr``: (rows/br + 1,).  The dense blocks are what feeds the MXU in
+    ``indptr``: (rows/br + 1,).  The dense blocks are what feeds the matrix units in
     the BSR SpMV/SpMM kernels.
     """
 

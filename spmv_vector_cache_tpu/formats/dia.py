@@ -1,25 +1,21 @@
-"""DIA (diagonal) format: container, conversions, and the TPU tile plan.
+"""DIA (diagonal) format: container, conversions, and the tile plan.
 
 The reference bundles diagonal test matrices (``matrices/dia64-uint64``)
 and its whole design question is *where the irregularly-accessed vector
 lives* (SURVEY.md §2.1).  For matrices whose nonzeros concentrate on a few
-diagonals, the TPU answer is to make the irregular access disappear
-entirely: store one value vector per diagonal and turn ``x[col]`` into a
-**static lane/sublane shift** of an x tile that is already in VMEM — no
-gather, no per-element index stream.  The byte cost drops from
-8 B/nnz (value + column id) to 4 B/nnz + O(1), which is why the DIA
-kernel runs ~2x above the CSR-format roofline (see bench.py).
+diagonals, the irregular access can disappear entirely: store one value
+vector per diagonal and turn ``x[col]`` into a **static slice** of the
+padded x — no gather, no per-element index stream.  The byte cost drops
+from 8 B/nnz (value + column id) to 4 B/nnz + O(1).
 
 Layout built here (consumed by ``ops/spmv_dia.py``):
 
-* ``vals``: (T, D, S, 128) — grid step t covers ``S*128`` consecutive rows;
-  lane = row % 128, sublane = (row // 128) % S; D diagonals;
-  ``vals[t, k, i, l]`` is A[r, r + offsets[k]] for r = t*S*128 + i*128 + l.
-* x is presented to the kernel as a 2D (x_rows, 128) image of the padded
-  flat vector, so every diagonal offset decomposes into a *static*
-  (8-row block, sublane, lane) shift applied to an aligned dynamic load —
-  the alignment discipline Mosaic requires (lane offsets must be
-  multiples of 128; only the grid-step base is dynamic).
+* ``vals``: (T, D, S, 128) — block t covers ``S*128`` consecutive rows;
+  ``vals[t, k, i, l]`` is A[r, r + offsets[k]] for r = t*S*128 + i*128 + l,
+  so each (t, k) value run is contiguous;
+* x is padded by ``pad_left`` zeros (covering the most negative offset),
+  so diagonal k of block t reads x_pad[pad_left + offsets[k] + t*S*128 :]
+  contiguously.
 
 ``split_diagonal`` is the hybrid splitter (the strategy-selection role of
 the reference's per-matrix bitfile choice, ``HWSpMVFactory.cpp:20-38``):
@@ -39,8 +35,7 @@ from .containers import COO, CSC, CSR
 
 Array = Any
 
-#: sublanes of 128 rows per DIA grid step (8192 rows) — large steps amortize
-#: the per-step pipeline cost; vals block per step is D * S * 512 bytes
+#: 128-row groups per DIA block (8192 rows): the row padding granularity
 DIA_SUBLANES = 64
 
 
@@ -197,7 +192,7 @@ class DiaStats:
     num_steps: int
     fill: float              # nnz / (D * padded rows)
     bytes_per_nnz: float     # streamed value bytes per populated slot
-    x_rows: int              # resident x image height (VMEM cost x_rows*512 B)
+    x_rows: int              # padded x length in 128-element rows
 
     def as_dict(self):
         return dataclasses.asdict(self)
@@ -206,11 +201,12 @@ class DiaStats:
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass(frozen=True)
 class DiaPlan:
-    """Tiled DIA layout ready for the shift kernel (see module docstring).
+    """Tiled DIA layout ready for the diagonal executor (see module
+    docstring).
 
-    ``offsets`` is static aux data: the kernel specializes its shift
-    network per distinct offset pattern — the TPU analog of the reference
-    flashing a variant-specific bitfile per matrix class.
+    ``offsets`` is static aux data: the executor specializes its slices
+    per distinct offset pattern — the analog of the reference flashing a
+    variant-specific bitfile per matrix class.
     """
 
     vals: Array                       # (T, D, S, 128); (T, 2D, S, 128) df64
@@ -221,7 +217,7 @@ class DiaPlan:
     x_rows: int                       # padded x image height
     stats: DiaStats
     #: double-float layout: vals channels [0:D] hold f32 value highs and
-    #: [D:2D] the f32 lows (hi + lo == the f64 value) — the TPU-native form
+    #: [D:2D] the f32 lows (hi + lo == the f64 value) — the f32-pair form
     #: of the reference's 64-bit SpMVData (see ops/df64.py)
     double: bool = False
 
@@ -251,7 +247,7 @@ def build_dia_plan(a, *, sublanes: int = DIA_SUBLANES,
 
     ``value_dtype=np.float64`` builds a **double-float** plan: values are
     stored as (hi, lo) f32 pairs stacked along the diagonal axis and the
-    kernel computes with f64-equivalent (~2^-48) accuracy using error-free
+    executor computes with f64-equivalent (~2^-48) accuracy using error-free
     transformations (``ops/df64.py``) — precision parity with the
     reference's double-precision datapath at 8 B/nnz.
     """
@@ -284,11 +280,9 @@ def build_dia_plan(a, *, sublanes: int = DIA_SUBLANES,
     omin = min(offsets) if offsets else 0
     omax = max(offsets) if offsets else 0
     pad_left = ((max(0, -omin)) + 127) // 128 * 128
-    # kernel loads rows [i*S + rowQ, i*S + rowQ + S + 8); bound the image
-    max_rowq = max((8 * ((pad_left + o) // 1024) for o in offsets), default=0)
-    x_rows = T * S + max_rowq + S + 8
-    # x must cover pad_left + cols flat entries
-    x_rows = max(x_rows, (pad_left + cols + 127) // 128)
+    # padded x must cover every diagonal's slice and all of x
+    x_rows = max((pad_left + T * RS + max(omax, 0) + 127) // 128,
+                 (pad_left + cols + 127) // 128)
 
     nnz = int((vd != 0).sum())
     streamed = store.shape[0] * nr * 4 if double else \
@@ -308,7 +302,7 @@ def build_dia_plan(a, *, sublanes: int = DIA_SUBLANES,
 class HybridPlan:
     """DIA part + SELL residual: ``y = dia(x) + sell(x)``.
 
-    The TPU port of the reference's BufferSel hybrid idea
+    The port of the reference's BufferSel hybrid idea
     (``SpMVFrontendBufferSel.scala``): route each nonzero to the placement
     strategy its locality deserves, merge with one add."""
 

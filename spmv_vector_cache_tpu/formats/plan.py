@@ -3,36 +3,33 @@
 The reference streams CSC and pays for the scattered update
 ``y[rowInd] += v`` with interlock hardware — shadow queues, CAM issue
 windows, and a vector cache in front of y (``chisel/frontend/``,
-``chisel/cache-new/``, SURVEY.md §2.1).  On TPU the same irregularity must
-be removed by *layout*, not tracked at runtime.  This module builds a
-**sliced-ELLPACK (SELL) tile plan** over CSR:
+``chisel/cache-new/``, SURVEY.md §2.1).  Here the irregularity is removed
+by *layout*, not tracked at runtime.  This module builds a
+**sliced-ELLPACK (SELL-C-sigma) tile plan** over CSR:
 
 * rows are bound to *lanes* — 128 consecutive (sub)rows form a *slice*,
-  and a slice's nonzeros are stored as (8, 128) value/column tiles whose
-  sublane axis holds successive nonzero positions of each row.  The row
-  reduction is a sublane-axis sum, so the scatter disappears (the
+  and a slice's nonzeros are stored as (P, 128) value/column tiles whose
+  first axis holds successive nonzero positions of each row.  The row
+  reduction is a sum over that axis, so the scatter disappears (the
   RAW-hazard interlocks of ``InterleavedReduce.scala:51-57`` and
-  ``SpMVFrontendNBCache.scala:26-77`` have no TPU analog to pay for);
+  ``SpMVFrontendNBCache.scala:26-77`` have nothing left to guard);
 * long rows *split* into bounded sub-rows (the load-balance fix the
   reference probes with its ``row64k`` matrix and
   ``permuteLongestRowFirst``, ``matrixutils.py:148-158``);
 * sub-rows may be length-sorted within ``sigma`` windows (SELL-sigma) so
   slices hold similar-length rows and padding stays small;
 * optionally, rows split at **column-stripe** boundaries so every tile's
-  column span is bounded — this is what makes the windowed-x kernel
-  (the vector-cache analog) applicable to matrices without natural
-  bandwidth; the merge back to y is one segment-sum (the same fixup that
-  serves split/sigma).
+  column span is bounded; the merge back to y is one segment-sum (the
+  same fixup that serves split/sigma).
 
 The irregular access that remains is the *gather* of x[col] — the exact
 dual of the reference's y problem (CSC makes x sequential and y scattered;
-CSR makes y sequential and x gathered).  TPU hardware can gather only
-within a 128-lane window, so the plan computes, per 8-tile kernel step, a
-**window base** ``wb`` such that every column the step touches lies in
-``[wb*128, wb*128 + K*128)``; K (``window_blocks``) is the static loop
-count the kernel pays.  Feasibility and the required K come straight from
-the layout — the TPU port of the reference's ``maxColSpan`` analysis
-(``SparseMatrix.cpp:110-119``) deciding buffer strategy.
+CSR makes y sequential and x gathered).  The plan also records, per group
+of tiles, a **window base** ``wb`` such that every column the group
+touches lies in ``[wb*grain, wb*grain + K*128)``; K (``window_blocks``)
+measures the layout's column locality — the port of the reference's
+``maxColSpan`` analysis (``SparseMatrix.cpp:110-119``) deciding buffer
+strategy — and the planner routes on it.
 """
 
 from __future__ import annotations
@@ -48,13 +45,12 @@ from .convert import coo_to_csr, csc_to_csr
 
 Array = Any
 
-#: tiles per kernel grid step (output block sublane alignment requires 8)
+#: tile-count granularity: every plan holds a multiple of 8 tiles
 TILES_PER_STEP = 8
 
 #: default tiles sharing one x-window base (overridable per plan via
 #: ``window_group_tiles``).  Finer granularity shrinks each window's
-#: column span; must divide TILES_PER_STEP.  Kernels concatenate
-#: ``8 / group_tiles`` group results per 8-sublane output store.
+#: column span; must divide TILES_PER_STEP.
 WINDOW_GROUP_TILES = 4
 
 
@@ -71,22 +67,21 @@ class PlanStats:
     num_stripes: int        # column stripes (1 = no striping)
     padded_slots: int
     fill: float             # nnz / (num_tiles * P * R)
-    window_blocks: int      # K required by the windowed kernel (0 = infeasible)
-    max_window_base: int    # max of window_base (static x padding bound)
-    groups_per_step: int    # 8-tile window groups fused per kernel grid step
+    window_blocks: int      # K: column blocks a tile group spans (0 = over cap)
+    max_window_base: int    # max of window_base
+    groups_per_step: int    # tile count is padded to a multiple of 8x this
     pad_value: float = 0.0  # value of padding slots (the semiring's zero)
     uniform_tiles_per_slice: int = 0  # u if every slice spans exactly u
-    # tiles and u | 8 (enables the in-kernel slice reduction); 0 otherwise
+    # tiles and u | 8; 0 otherwise
     group_tiles: int = WINDOW_GROUP_TILES  # tiles per x-window group (wg)
     #: p when every row has exactly p sub-rows in natural (row-major)
     #: order — the epilogue then folds y with one reshape+reduce instead
     #: of a scattered segment sum; 0 otherwise
     uniform_parts: int = 0
-    #: all tiles of each wg-group share one slice: the kernel may reduce
-    #: whole groups to single output rows (in-kernel slice fold)
+    #: all tiles of each wg-group share one slice
     group_fold: bool = False
-    #: group g *is* slice g for g < num_slices (uniform tiling): kernel
-    #: group rows are y2d directly, no tile segment-sum at all
+    #: group g *is* slice g for g < num_slices (uniform tiling): the
+    #: tile -> slice fold is a reshape, no segment-sum at all
     group_slice_identity: bool = False
     #: double-float layout: vals is f32 (T, 2*positions, R) with value
     #: highs in [:, :P] and lows in [:, P:] — the f64-parity datapath
@@ -106,7 +101,7 @@ class PlanStats:
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass(frozen=True)
 class SellPlan:
-    """Tiled SELL layout of one sparse matrix, ready for the kernels.
+    """Tiled SELL layout of one sparse matrix, ready for the executors.
 
     ``vals``/``cols``: (T, P, R) — tile t covers R=128 sub-rows (lane axis)
     of slice ``tile_slice[t]`` and P=8 successive nonzero positions of each
@@ -125,10 +120,8 @@ class SellPlan:
     tile_slice: Array    # (T,) int32, nondecreasing
     window_base: Array   # (T/group_tiles,) int32 x window base
     row_map: Array       # (num_slices * R,) int32 → original row, `rows` = pad
-    #: (T/group_tiles * K,) int32 precomputed x2d row ids for the window
-    #: kernel's xw gather — building these in-graph costs ~0.05 ms/call
-    #: inside a chained loop (XLA does not hoist the loop-invariant iota/
-    #: clip), measured 65 -> 73 Gnnz/s; empty when K == 0
+    #: (T/group_tiles * K,) int32 row ids of each group's x window in the
+    #: 128-wide x image (``compute_window_rows``); empty when K == 0
     window_rows: Array
     shape: Tuple[int, int]
     lane_rows: int       # R
@@ -206,17 +199,16 @@ def compute_cols_win(live: np.ndarray, cols: np.ndarray,
                      window_base: np.ndarray, window_blocks: int,
                      group_tiles: int = WINDOW_GROUP_TILES,
                      window_grain: int = 128) -> np.ndarray:
-    """In-window column offsets, the windowed kernel's streamed index form.
+    """In-window column offsets: the int16 index form of a windowed layout.
 
     Live slots (``live`` mask; ``vals != 0`` for plus-times plans) become
     ``col - window_base[group]*128`` — by construction in
-    ``[0, window_blocks*128)``, so they fit int16 and the kernel streams
-    half the index bytes of the global int32 ``cols`` (the cols channel is
-    one of the two hot DMA streams, cf. the reference's per-channel burst
+    ``[0, window_blocks*128)``, so they fit int16, half the index bytes of
+    the global int32 ``cols`` (cf. the reference's per-channel burst
     sizing, ``spmv-common.scala:26-29``).  Padding slots are forced to
-    offset 0 (their value is the semiring zero, so the gathered lane never
-    contributes).  Returns an empty (0, P, R) array when the windowed
-    kernel is infeasible (``window_blocks == 0``).
+    offset 0.  Returns an empty (0, P, R) array when the layout has no
+    bounded window (``window_blocks == 0``).  The executors in ``ops/``
+    read the global ``cols``; this form is kept for a windowed kernel.
     """
     T, P, R = cols.shape
     if not window_blocks or not T:
@@ -229,9 +221,8 @@ def compute_cols_win(live: np.ndarray, cols: np.ndarray,
 
 def window_image_blocks(num_cols: int, max_window_base: int,
                         window_blocks: int, window_grain: int = 128) -> int:
-    """Rows (in 128-lane blocks) of the canonical x image the window
-    kernels gather from; shared by the plan-time ``window_rows``
-    precompute and the runtime prologue so the two always agree."""
+    """Rows (in 128-lane blocks) of the canonical x image a windowed
+    layout's groups index (see ``compute_window_rows``)."""
     return max(_cdiv(num_cols, 128),
                _cdiv(max_window_base * window_grain +
                      window_blocks * 128, 128)) + 1
@@ -240,11 +231,9 @@ def window_image_blocks(num_cols: int, max_window_base: int,
 def compute_window_rows(window_base: np.ndarray, window_blocks: int,
                         num_cols: int,
                         window_grain: int = 128) -> np.ndarray:
-    """Precomputed x-image row ids for the window kernel's xw gather (see
-    SellPlan.window_rows); must mirror the runtime's x image geometry
-    (``spmv_pallas._spmv_window``).  At grain g < 128 the image is
-    (128/g)-way overlapped — its row j covers elements
-    [g*j, g*j + 128) — and a window's k-th block is row
+    """x-image row ids of every group's window (see SellPlan.window_rows).
+    At grain g < 128 the image is (128/g)-way overlapped — its row j
+    covers elements [g*j, g*j + 128) — and a window's k-th block is row
     ``wb + (128/g)*k``."""
     if not window_blocks:
         return np.zeros((0,), np.int32)
@@ -271,14 +260,13 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
 
     ``split``: max nonzeros per sub-row (None = no splitting).
     ``sigma``: window (in sub-rows) for descending length sort.
-    ``stripe_width``: split rows at column boundaries of this width so the
-    windowed kernel applies to locality-poor matrices (None = off).
+    ``stripe_width``: split rows at column boundaries of this width so
+    every tile group's column span stays bounded (None = off).
     ``max_window_blocks``: cap on K; if a layout needs more, the plan is
     marked window-infeasible (``stats.window_blocks == 0``).
-    ``groups_per_step``: override the kernel grid-step width (in 8-tile
-    window groups) — the per-step DMA burst size knob, the analog of the
-    reference's per-channel burst-beat configuration
-    (``spmv-common.scala:26-29``); None = heuristic.
+    ``groups_per_step``: pad the tile count to a multiple of
+    ``8 * groups_per_step`` (rounded up to a multiple of the window group
+    size) — alignment for callers that stack plans; None = 1.
     ``pad_value``: value of padding slots — the additive identity of the
     semiring the plan will run under (0 for plus-times, +inf for
     min-plus, ...), so padding contributes nothing to any reduction.
@@ -290,9 +278,9 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
     ``ceil(max_len/split)`` sub-rows (empty ones padded) and pad every
     slice to the same tile count — a 128-lane slice then covers a fixed
     block of ``128/parts`` rows (shrinking the window span) and the y
-    fixup collapses to one reshape+reduce (``stats.uniform_parts``); with
+    fixup collapses to one lane fold (``stats.uniform_parts``); with
     ``window_group_tiles == ceil(split/positions)`` each window group is
-    exactly one slice and the kernel folds it to a single output row
+    exactly one slice and the tile -> slice fold is a reshape
     (``stats.group_slice_identity``).
     """
     csr = _as_csr(a)
@@ -426,9 +414,7 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
         # part-major within each slice: a slice covers rows_per_slice =
         # R // p consecutive rows, with part j of row r at lane
         # j*rows_per_slice + (r % rows_per_slice).  The y fixup is then a
-        # contiguous-lane fold of y2d — NOT a (rows, p) reshape, which
-        # relayouts the whole vector on TPU (measured 14.5 vs 74 Gnnz/s
-        # end to end)
+        # contiguous-lane fold of y2d
         p_u = uniform_parts
         rps_u = R // p_u
         n_slices_u = _cdiv(rows, rps_u)
@@ -470,9 +456,9 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
             slice_stripe[s] = valid[0] if valid.size else \
                 (slice_stripe[s - 1] if s else 0)
 
-    # pad each stripe's tile count to a multiple of B so no kernel step
-    # straddles stripes (a step shares one x window across its B tiles);
-    # pad tiles attach to the stripe's last slice and hold only zeros
+    # pad each stripe's tile count to a multiple of B so no group of B
+    # tiles straddles stripes; pad tiles attach to the stripe's last
+    # slice and hold only zeros
     ntiles_padded = ntiles.copy()
     if num_stripes > 1:
         for stripe_val in np.unique(slice_stripe):
@@ -481,7 +467,10 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
             pad = (-total) % B
             if pad:
                 ntiles_padded[sel[-1]] += pad
-    else:
+    elif not uniform_parts:
+        # (uniform layouts keep every slice at exactly its tile count so
+        # the tile -> slice fold stays a reshape; the tail padding below
+        # adds whole empty groups instead)
         total = int(ntiles_padded.sum())
         pad = (-total) % B
         if pad:
@@ -520,9 +509,7 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
     any_valid = cmax >= 0
     # evaluate window-base granularities finest-first and keep the
     # COARSEST grain achieving the minimal K: a span of 90 straddling a
-    # block boundary needs K=2 at grain 128 but K=1 at grain <= 32 — one
-    # fewer gather+select per value vreg in the kernel, paid for by a
-    # (128/grain)-way overlapped x image in the xw prologue
+    # block boundary needs K=2 at grain 128 but K=1 at grain <= 32
     grains = (128,) if not T else (
         (window_grain,) if window_grain else (32, 64, 128))
     best = None                            # (K, -grain, grain, wb)
@@ -536,24 +523,18 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
             best = cand
     window_blocks, _, grain, wb = best
     if window_blocks > max_window_blocks:
-        window_blocks = 0                  # windowed kernel infeasible
+        window_blocks = 0                  # span over the cap
         grain = 128
         wb = np.where(any_valid, cmin, 0) // 128
     max_window_base = int(wb.max()) if T else 0
 
-    # fuse G groups of 8 tiles per kernel grid step: amortizes the fixed
-    # per-step pipeline cost (probe-measured ~1us/step — the dominant
-    # limiter at small steps) against the double-buffered VMEM budget;
-    # ~512 tiles/step ≈ 2.5 MB vals+cols per step keeps the fixed cost
-    # under ~10% while leaving room for the resident x copy
+    # tile-count padding: every padded tile is streamed on each apply,
+    # so pad only as far as a caller asks (a multiple of the window group
+    # size keeps groups whole)
     if groups_per_step is not None:
-        # round up to a multiple of the window-group size: the kernels'
-        # in-place slice fold needs NG = 8*groups/wg divisible by 8
-        # (i.e. groups % wg == 0) — a non-multiple would silently demote
-        # to per-tile output with 3x the partials traffic (r3 weak #7)
         groups = _cdiv(max(1, groups_per_step), wg) * wg
     else:
-        groups = 64 if window_blocks else 8
+        groups = 1
     step = B * groups
     if T % step:
         pad = step - T % step
@@ -574,7 +555,7 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
     identity_map = (not sorted_applied) and num_splits == 0 and \
         num_stripes == 1
 
-    # fold structure: may the kernel reduce whole wg-groups to one row?
+    # fold structure: does every wg-group of tiles lie in one slice?
     ts_g = tile_slice.reshape(-1, wg)
     group_fold = bool(T) and bool((ts_g == ts_g[:, :1]).all())
     group_slice_identity = group_fold and num_stripes == 1 and \
@@ -594,8 +575,8 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
 
     cols_win = compute_cols_win(live, cols, wb, window_blocks, wg, grain)
     if double:
-        # hi/lo f32 channel pairs stacked along the sublane axis: the
-        # device never sees an f64 array (TPU vector units are f32-only)
+        # hi/lo f32 channel pairs stacked along the position axis: the
+        # device computes in f32 pairs (error-free transformations)
         from ..ops.df64 import split_f64
 
         hi, lo = split_f64(vals)
@@ -610,27 +591,37 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
                     identity_map=identity_map, stats=stats)
 
 
+#: a diagonal offset set wider than this many columns is not a band: its
+#: diagonals are short and scattered, and the SELL layout serves them
+DIA_MAX_SPAN = 12 * 64 * 128
+
+#: x of at most this many 128-column blocks is a small working set: every
+#: layout's gather stays cache-resident, so neither striping nor a
+#: hot/cold column split can improve on the plain layout
+NARROW_X_BLOCKS = 64
+
+
 def auto_plan(a, *, value_dtype=np.float32, max_window_blocks: int = 16,
               lane_rows: int = 128, positions: int = 8,
               allow_dia: bool = True, min_diag_fill: float = 0.5,
               min_dia_coverage: float = 0.3, semiring="plus_times"):
     """Heuristic plan selection driven by structure analyses.
 
-    Decision features are the TPU ports of the reference's preprocessing
-    analyses (maxAlive / maxColSpan / row-length histogram,
+    Decision features are ports of the reference's preprocessing analyses
+    (maxAlive / maxColSpan / row-length histogram,
     ``SparseMatrix.cpp:92-119``), extended with diagonal-structure
-    detection.  Returns the best plan *type* for the matrix — the role the
-    reference assigns to choosing which accelerator bitfile to flash
-    (``HWSpMVFactory.cpp:20-38``):
+    detection, and close calls go to the cost model
+    (``formats/costmodel.py``).  Returns the best plan *type* for the
+    matrix — the role the reference assigns to choosing which accelerator
+    bitfile to flash (``HWSpMVFactory.cpp:20-38``):
 
     0. nonzeros concentrated on dense diagonals -> :class:`~.dia.DiaPlan`
-       (gather-free shift kernel, 4 B/nnz) or a :class:`~.dia.HybridPlan`
-       with the SELL residual;
-    1. skewed row lengths -> split + sigma sort;
-    2. plain layout window-feasible -> done (banded / narrow matrices);
-    3. else, if rows touch few column stripes on average -> stripe the
-       columns so the windowed kernel applies;
-    4. else leave window-infeasible (the stream strategy handles it).
+       (gather-free, 4 B/nnz) or a :class:`~.dia.HybridPlan` with the SELL
+       residual;
+    1. skewed row lengths -> split + sigma sort (or a chunk plan);
+    2. plain layout with bounded column spans -> done (banded / narrow);
+    3. else the cost model picks among striping, a hot/cold column split,
+       the COO path and the plain layout.
     """
     from ..ops import semiring as sr
 
@@ -645,10 +636,11 @@ def auto_plan(a, *, value_dtype=np.float32, max_window_blocks: int = 16,
                 f"under mul), but the matrix has a negative value "
                 f"({vmin}); padding slots would out-reduce true negative "
                 f"products.  x must be non-negative too.")
+    plus_times = s.name == "plus_times"
     # the DIA container encodes absence as 0, which is only the additive
     # identity of plus-times; other semirings run the SELL path with
     # padding set to their own zero
-    if allow_dia and csr.nnz and s.name == "plus_times":
+    if allow_dia and csr.nnz and plus_times:
         plan = _try_dia_plan(csr, value_dtype=value_dtype,
                              max_window_blocks=max_window_blocks,
                              lane_rows=lane_rows, positions=positions,
@@ -658,11 +650,10 @@ def auto_plan(a, *, value_dtype=np.float32, max_window_blocks: int = 16,
             from .dia import HybridPlan
 
             if isinstance(plan, HybridPlan):
-                # diagonal coverage alone must not commit the choice
-                # (VERDICT r4 weak #2: a HybridPlan whose residual plan
-                # collapses loses 20x to the pure windowed path it never
-                # considered) — cost-compare against the pure SELL plan,
-                # the HWSpMVFactory role done with a model instead of a
+                # diagonal coverage alone must not commit the choice: a
+                # HybridPlan whose residual plan collapses can lose to the
+                # pure SELL plan it never considered — cost-compare, the
+                # HWSpMVFactory role done with a model instead of a
                 # signature probe (HWSpMVFactory.cpp:20-38)
                 from .costmodel import estimate_seconds
 
@@ -670,25 +661,18 @@ def auto_plan(a, *, value_dtype=np.float32, max_window_blocks: int = 16,
                     csr, value_dtype=value_dtype,
                     max_window_blocks=max_window_blocks,
                     lane_rows=lane_rows, positions=positions,
-                    pad_value=float(s.zero),
-                    allow_packed=s.name == "plus_times")
-                # the model is ±2x-coarse by design: veto only decisive
-                # losses, don't re-litigate ties (tiny matrices price
-                # every plan within noise of each other)
+                    pad_value=float(s.zero), plus_times=plus_times)
+                # the model is coarse: veto only decisive losses
                 if estimate_seconds(alt) < 0.7 * estimate_seconds(plan):
                     plan = alt
             return plan
     plan = _auto_sell_plan(csr, value_dtype=value_dtype,
                            max_window_blocks=max_window_blocks,
                            lane_rows=lane_rows, positions=positions,
-                           pad_value=float(s.zero),
-                           allow_packed=s.name == "plus_times")
-    if s.name == "plus_times":
-        # tiny-regime backstop: if the structured choice's fixed
-        # machinery prices out worse than the XLA gather+scatter COO
-        # path (~16 ns/nnz, probe_tiny), take the COO path.  Measured:
-        # tiled kernels usually win even at 6K nnz, so this fires only
-        # for pathological tiny windowless layouts.
+                           pad_value=float(s.zero), plus_times=plus_times)
+    if plus_times:
+        # tiny-regime backstop: if the structured choice prices out worse
+        # than the gather + segment-sum COO path, take the COO path
         plan = _coo_backstop(csr, plan, value_dtype)
     return plan
 
@@ -696,18 +680,14 @@ def auto_plan(a, *, value_dtype=np.float32, max_window_blocks: int = 16,
 def _try_dia_plan(csr: CSR, *, value_dtype, max_window_blocks, lane_rows,
                   positions, min_diag_fill, min_dia_coverage):
     """DiaPlan / HybridPlan if the diagonal structure pays for it, else
-    None.  Feasibility: the shift kernel keeps the padded x image fully
-    VMEM-resident, so wide matrices fall back to the windowed SELL path."""
+    None."""
     from .dia import HybridPlan, build_dia_plan, split_diagonal
 
     dia, rest, coverage = split_diagonal(csr, min_diag_fill=min_diag_fill)
     if dia is None or coverage < min_dia_coverage:
         return None
-    # the shift kernel streams sliding x blocks when x exceeds VMEM, but
-    # each step's window must stay a few blocks wide: bound the diagonal
-    # span (wider structure belongs to the SELL window/stripe machinery)
     offs = np.asarray(dia.offsets)
-    if offs.size and int(offs.max() - offs.min()) > 12 * 64 * 128:
+    if offs.size and int(offs.max() - offs.min()) > DIA_MAX_SPAN:
         return None
     if rest is not None and coverage < 0.98:
         # hybrid only worth a second pass over x/y when the dia part
@@ -725,10 +705,9 @@ def _try_dia_plan(csr: CSR, *, value_dtype, max_window_blocks, lane_rows,
 
 
 def _coo_backstop(csr: CSR, plan, value_dtype):
-    """Prefer the XLA COO path when it prices below the structured plan
-    (plus-times f32 only; fires mostly on tiny scatter-epilogue layouts
-    like hybrid residues — probe_tiny measured 16 ns/nnz, no machinery
-    floor)."""
+    """Prefer the COO path (one gather + one segment sum) when it prices
+    below the structured plan (plus-times only; fires mostly on tiny
+    layouts with scatter epilogues, like hybrid residues)."""
     if csr.nnz == 0 or np.dtype(value_dtype) == np.float64:
         return plan
     from .cached import COO_TAIL_MAX, CooTail, coo_tail_from_csr
@@ -740,10 +719,21 @@ def _coo_backstop(csr: CSR, plan, value_dtype):
     return coo if estimate_seconds(coo) < estimate_seconds(plan) else plan
 
 
+def _cheaper(cand, plan):
+    """``cand`` when the cost model prices it below ``plan``."""
+    from .costmodel import estimate_seconds
+
+    if cand is not None and estimate_seconds(cand) < estimate_seconds(plan):
+        return cand
+    return plan
+
+
 def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
                     lane_rows, positions, pad_value: float = 0.0,
                     allow_cached: bool = True,
-                    allow_packed: bool = True):
+                    plus_times: bool = True):
+    """Pick a SELL-family plan.  ``plus_times``: the plan will run under
+    plus-times, so duplicate entries may be merged by summing them."""
     lens = np.diff(np.asarray(csr.indptr, dtype=np.int64))
     kw = dict(value_dtype=value_dtype, lane_rows=lane_rows,
               positions=positions, max_window_blocks=max_window_blocks,
@@ -754,45 +744,36 @@ def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
         mean = max(1.0, float(lens.mean()))
         mx = float(lens.max())
         if mx / mean > 8.0:
-            # skewed rows: the chunk plan (formats/chunk.py) removes the
-            # split/sigma scatter epilogue entirely (measured 2.8 ms of
-            # a 3.8 ms apply on the power-law benchmark matrix, VERDICT
-            # r4 weak #1); take it when the cost model agrees and the
-            # layout stays dtype/shape-compatible
-            if np.dtype(value_dtype) != np.float64 and \
-                    lane_rows == 128 and positions == 8:
-                from .chunk import build_chunk_plan
-                from .costmodel import estimate_seconds
-
-                # duplicate merging sums values — plus-times only, and
-                # allow_packed is exactly the plus-times flag here
-                cp = build_chunk_plan(csr, value_dtype=value_dtype,
-                                      pad_value=pad_value,
-                                      merge_duplicates=allow_packed)
-                if cp is not None:
-                    alt = build_sell_plan(
-                        csr, sigma=lane_rows * 8,
-                        split=int(max(positions,
-                                      _cdiv(int(mean * 4), positions)
-                                      * positions)),
-                        value_dtype=value_dtype, lane_rows=lane_rows,
-                        positions=positions,
-                        max_window_blocks=max_window_blocks,
-                        pad_value=pad_value)
-                    if estimate_seconds(cp) < estimate_seconds(alt):
-                        return cp
             split = int(max(positions,
                             _cdiv(int(mean * 4), positions) * positions))
             sigma = lane_rows * 8
+            # skewed rows with bounded spans: the chunk plan
+            # (formats/chunk.py) packs each row block against column
+            # windows of at most BUCKET_KS[-1] blocks; rows wider than
+            # that would fragment into near-empty tiles, so it is only
+            # built for matrices whose typical row fits one window
+            if np.dtype(value_dtype) != np.float64 and \
+                    lane_rows == 128 and positions == 8:
+                from . import analysis
+                from .chunk import BUCKET_KS, build_chunk_plan
+
+                spans = analysis.row_spans(csr)[lens > 0]
+                if spans.size and \
+                        float(np.median(spans)) <= BUCKET_KS[-1] * 128:
+                    cp = build_chunk_plan(
+                        csr, value_dtype=value_dtype, pad_value=pad_value,
+                        merge_duplicates=plus_times)
+                    alt = build_sell_plan(csr, sigma=sigma, split=split,
+                                          **kw)
+                    if cp is not None and _cheaper(cp, alt) is cp:
+                        return cp
         elif float(lens.std()) > mean:
             sigma = lane_rows * 8
         elif mx >= 1.5 * positions and mx <= 3.0 * mean:
-            # regular rows: uniform split to 16-nnz sub-rows shrinks a
-            # slice's row extent (128 -> 128/parts rows), which shrinks
-            # every window group's column span — the knob that took the
-            # window kernel from 42 to 74 Gnnz/s on the banded bench
-            # matrix (probes/probe_window9.py); fill cost is bounded by
-            # the rows' regularity
+            # regular rows: a uniform split to 16-nnz sub-rows makes every
+            # slice exactly one group of tiles, so the tile -> slice fold
+            # is a reshape and the row fixup a lane fold (no scatter);
+            # fill cost is bounded by the rows' regularity
             usplit = 2 * positions
             if mx > usplit * lane_rows:
                 # would need more sub-rows than lanes (build_sell_plan
@@ -801,8 +782,7 @@ def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
             pu = build_sell_plan(csr, split=usplit, uniform_split=True,
                                  window_group_tiles=max(
                                      1, _cdiv(usplit, positions)), **kw)
-            # gate on fill over the REAL tiles (grid-step padding would
-            # dominate the ratio for small matrices)
+            # gate on fill over the real tiles
             real_slots = pu.stats.num_slices * _cdiv(usplit, positions) * \
                 positions * lane_rows
             if pu.stats.window_blocks and \
@@ -810,31 +790,27 @@ def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
                 return pu
     p = build_sell_plan(csr, sigma=sigma, split=split, **kw)
     if p.stats.window_blocks or p.stats.nnz == 0:
+        # bounded column spans: the plain layout's gathers stay local
         return p
-    # small x: the resident strategy (x fully VMEM-resident, no locality
-    # needed) beats a striped window plan — striping's sub-row merge is
-    # an unsorted segment scatter, measured ~30x slower than the kernel
-    from ..ops.spmv_pallas import RESIDENT_MAX_BLOCKS
-    if _cdiv(csr.shape[1], 128) <= RESIDENT_MAX_BLOCKS:
+    if _cdiv(csr.shape[1], 128) <= NARROW_X_BLOCKS:
         return p
-    # window-infeasible and wide: the maxAlive / maxColSpan analyses (in
+    # wide and locality-poor: the maxAlive / maxColSpan analyses (in
     # their CSR duals: column working set / per-row column span,
-    # ``SparseMatrix.cpp:92-119``) drive which variant runs — the
-    # reference's core selection thesis
+    # ``SparseMatrix.cpp:92-119``) propose alternatives, and the cost
+    # model decides — the reference's core selection thesis
     from . import analysis
+    from .cached import (COO_TAIL_MAX, _compact_full_cover,
+                         coo_tail_from_csr)
 
-    ws = analysis.column_working_set(csr)
-    if ws <= 2048 and np.dtype(value_dtype) != np.float64:
-        # bounded x working set: a compact tier keeps every live column
-        # resident, beating striping's sub-row merge outright
-        from .cached import _compact_full_cover
-
-        fc = _compact_full_cover(csr, kw)
-        if fc is not None:
-            return fc
+    single = np.dtype(value_dtype) != np.float64
+    if single and (csr.nnz <= (1 << 20)
+                   or analysis.column_working_set(csr) <= 2048):
+        # a narrow set of live columns: one compact tier gathers from a
+        # small, cache-resident x
+        p = _cheaper(_compact_full_cover(csr, kw), p)
     # striping width from the span distribution: stripes just wide
-    # enough for 95% of rows keep K (and the kernel's select chain)
-    # small without exploding the piece count
+    # enough for 95% of rows keep K small without exploding the piece
+    # count
     spans = analysis.row_spans(csr)
     nz_spans = spans[lens > 0]
     p95 = int(np.percentile(nz_spans, 95)) if nz_spans.size else 0
@@ -848,54 +824,23 @@ def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
     changes = np.ones(idx.shape[0], dtype=bool)
     changes[1:] = (nz_row[1:] != nz_row[:-1]) | (stripe[1:] != stripe[:-1])
     pieces = int(changes.sum())
-    if pieces and p.stats.nnz / pieces >= 4.0:
+    if pieces and csr.nnz / pieces >= 4.0:
         ps = build_sell_plan(csr, sigma=sigma, split=split,
                              stripe_width=sw, **kw)
-        # striping must actually pay: stripe-pure slice padding can
-        # collapse fill to 1-3% (seen on scattered residues and
-        # fine-striped wide matrices, VERDICT r4 weak #2), at which
-        # point the locality-free packed floor (~1.6 ns/nnz measured,
-        # TPU_NOTES r4) is cheaper than streaming 30-100x padding.
-        # Cost-compare instead of committing on the piece estimate.
-        from .costmodel import estimate_seconds
-
-        packed_floor = 30e-6 + 1.64e-9 * ps.stats.nnz
-        if ps.stats.window_blocks and \
-                estimate_seconds(ps) < packed_floor:
-            return ps
-    # locality-poor fall-through: a column-popularity hot/cold split
-    # (CachedPlan — the vector-cache analog) wins when a small working
-    # set covers enough of the nonzeros; otherwise the packed two-pass
-    # kernel (the BufferNone analog, ``formats/packed.py``) serves any
-    # structure at a bounded per-nnz cost.  The 0.1 Gnnz/s XLA-gather
-    # stream path is never chosen silently.
-    from .cached import (COO_TAIL_MAX, _compact_full_cover,
-                         coo_tail_from_csr)
-
-    if np.dtype(value_dtype) != np.float64 and csr.nnz <= (1 << 20):
-        # windowless but narrow working set: remap the distinct columns
-        # into one compact tier (resident/deep kernel, 100% coverage)
-        fc = _compact_full_cover(csr, kw)
-        if fc is not None:
-            return fc
-    if csr.nnz <= COO_TAIL_MAX and np.dtype(value_dtype) != np.float64:
-        # tiny and windowless: the XLA element gather + segment scatter
-        # (~13 ns/nnz) beats every tiled kernel's fixed machinery
-        return coo_tail_from_csr(csr, value_dtype=value_dtype)
-    if allow_cached and np.dtype(value_dtype) != np.float64:
+        if ps.stats.window_blocks:
+            p = _cheaper(ps, p)
+    if single and csr.nnz <= COO_TAIL_MAX:
+        p = _cheaper(coo_tail_from_csr(csr, value_dtype=value_dtype), p)
+    if allow_cached and single:
+        # a column-popularity hot/cold split (CachedPlan — the
+        # vector-cache analog) when a small working set covers enough of
+        # the nonzeros
         from .cached import build_cached_plan
 
-        cp = build_cached_plan(csr, value_dtype=value_dtype,
-                               max_window_blocks=max_window_blocks,
-                               lane_rows=lane_rows, positions=positions,
-                               pad_value=pad_value,
-                               allow_packed=allow_packed)
-        if cp is not None:
-            return cp
-    if allow_packed and np.dtype(value_dtype) != np.float64:
-        from .packed import build_packed_plan
-
-        return build_packed_plan(csr, value_dtype=value_dtype)
+        p = _cheaper(build_cached_plan(
+            csr, value_dtype=value_dtype,
+            max_window_blocks=max_window_blocks, lane_rows=lane_rows,
+            positions=positions, pad_value=pad_value), p)
     return p
 
 

@@ -34,8 +34,6 @@ def config_suffix(plan) -> str:
         suffix = f"hot{plan.hot_cols.shape[0]}"
         return suffix if plan.cold is None else \
             f"{suffix}-{config_suffix(plan.cold)}"
-    if name == "PackedPlan":
-        return f"packed{plan.sblock.shape[0]}"
     s = plan.stats
     parts = [f"k{s.window_blocks}" if s.window_blocks else "stream",
              f"g{s.groups_per_step}",

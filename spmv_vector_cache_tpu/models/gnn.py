@@ -1,8 +1,8 @@
 """Graph neural network building blocks on the SpMM kernels.
 
 A GCN layer is exactly the library's SpMM against the normalized adjacency
-(``H' = act(Â H W)``): the sparse aggregate rides the SpMM path (MXU work
-is the dense feature transform), demonstrating the kernels inside a
+(``H' = act(Â H W)``): the sparse aggregate rides the SpMM path (the
+dense feature transform is a matrix product), demonstrating the kernels inside a
 learnable model with grad support.
 """
 
@@ -49,7 +49,8 @@ def gcn_layer(a_norm, h: Array, w: Array, b: Optional[Array] = None,
     ``spmm``: override the sparse aggregate (e.g. the sharded executor);
     defaults to the library SpMM reference path.
     """
-    hw = jnp.dot(h, w, preferred_element_type=h.dtype)
+    hw = jnp.dot(h, w, preferred_element_type=h.dtype,
+                 precision=jax.lax.Precision.HIGHEST)
     agg = (spmm or (lambda a, m: reference.spmm(a, m)))(a_norm, hw)
     if b is not None:
         agg = agg + b

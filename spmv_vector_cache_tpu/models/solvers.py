@@ -3,8 +3,8 @@
 The reference stops at the kernel (its application layer is the benchmark
 REPL, ``software/main.cpp``); a usable sparse library carries the standard
 iterative methods on top.  Everything here is a pure function of a
-``matvec`` callable (any of: the jnp reference executor, a Pallas-plan
-closure, or the sharded executor), so every solver runs single-chip or
+``matvec`` callable (any of: the jnp reference executor, a planned
+operator, or the sharded executor), so every solver runs single-chip or
 multi-chip unchanged, under ``jit``/``grad``.
 
 All loops are ``lax.while_loop``/``lax.scan`` — fixed trip counts or

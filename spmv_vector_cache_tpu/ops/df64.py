@@ -1,14 +1,12 @@
-"""Double-float (df64) arithmetic: float64-equivalent precision on TPU.
+"""Double-float (df64) arithmetic: float64-equivalent precision in f32.
 
 The reference computes SpMV in IEEE double precision end to end (64-bit
 ``SpMVData``, ``software/SparseMatrix.h:5``; Xilinx DP FP cores,
-``chisel/frontend/SemiringOp.scala:98-154``).  TPU vector hardware is
-f32-only, so the TPU-native equivalent of the DP datapath is **double-float
-arithmetic**: every value is an unevaluated sum ``hi + lo`` of two f32,
-carrying ~48 bits of significand (vs f64's 53) — error-free transformations
-(Dekker/Knuth/Veltkamp) implemented on the VPU.  These primitives are plain
-``jnp`` expressions, so they work identically inside Pallas kernels and in
-XLA-compiled host-level code.
+``chisel/frontend/SemiringOp.scala:98-154``).  The f64-parity plans
+compute it as **double-float arithmetic**: every value is an unevaluated
+sum ``hi + lo`` of two f32, carrying ~48 bits of significand (vs f64's
+53) — error-free transformations (Dekker/Knuth/Veltkamp).  These
+primitives are plain ``jnp`` expressions, traced into the executors.
 
 References (public domain algorithms): Dekker 1971 (two_prod, split),
 Knuth TAOCP v2 (two_sum), Shewchuk 1997.  XLA preserves IEEE semantics

@@ -9,8 +9,7 @@ The reference pins every accelerator variant against a sequential CPU loop,
   with the reference C++ loop and the bundled ``golden.bin`` files), used for
   exactness tests;
 * jitted, loop-free ``jnp`` executors for every container format — the
-  golden path that all Pallas kernels are verified against, and the fallback
-  execution path on any backend.
+  golden path that the plan executors are verified against.
 
 All device executors take a :class:`..ops.semiring.Semiring` and are pure
 functions of pytrees, so they compose with jit / grad / vmap / shard_map.
@@ -108,8 +107,7 @@ def spmv(a, x: Array, semiring=sr.PLUS_TIMES, y: Optional[Array] = None) -> Arra
     """Generalized sparse matrix-vector product ``y (+)= A (x) x`` on device.
 
     Works for every container; jit-friendly (static shapes, no Python loops
-    over data).  This is the correctness oracle for the Pallas kernels and
-    the portable fallback path.
+    over data).  This is the correctness oracle for the plan executors.
     """
     s = sr.get(semiring)
     num_rows = a.shape[0]

@@ -6,10 +6,8 @@ params (``chisel/spmv-common/spmv-common.scala:33-34``) with combinational,
 staged-integer, and blackboxed double-precision FP implementations
 (``chisel/frontend/SemiringOp.scala:5-154``).
 
-On TPU the analog is a pair of traceable functions plus an identity element;
-XLA fuses them into the surrounding kernel, and declared ``mxu_capable``
-tells the Pallas kernels whether the (mul, add-reduce) pair can be expressed
-as a matmul on the systolic array (true exactly for plus-times).
+Here the analog is a pair of traceable functions plus an identity element;
+XLA fuses them into the surrounding executor.
 """
 
 from __future__ import annotations
@@ -34,7 +32,6 @@ class Semiring:
     add: Callable[[Array, Array], Array]
     mul: Callable[[Array, Array], Array]
     zero: float
-    mxu_capable: bool = False  # (mul, add) == (*, +): reductions may use matmul
     #: the algebra is only a semiring on the non-negative reals: its
     #: ``zero`` must annihilate under ``mul`` (zero * x == zero), which for
     #: max-times (zero=0, mul=*) holds only when x >= 0 — a negative
@@ -72,10 +69,10 @@ class Semiring:
 
 
 def kernel_ops(name: str):
-    """(mul, axis_reduce) as Pallas-friendly float ops for the SELL kernels.
+    """(mul, axis_reduce) as float ops for the SELL executors.
 
     The boolean semiring runs on a {0.0, 1.0} float encoding (and = *,
-    or = max), so every semiring lowers to VPU mul/min/max/add — the TPU
+    or = max), so every semiring lowers to elementwise mul/min/max/add — the
     counterpart of the reference swapping combinational/staged/blackboxed
     operator implementations behind one interface
     (``SemiringOp.scala:5-154``).
@@ -91,8 +88,7 @@ def kernel_ops(name: str):
     raise NotImplementedError(f"kernel ops for semiring {name}")
 
 
-PLUS_TIMES = Semiring("plus_times", add=jnp.add, mul=jnp.multiply, zero=0.0,
-                      mxu_capable=True)
+PLUS_TIMES = Semiring("plus_times", add=jnp.add, mul=jnp.multiply, zero=0.0)
 # tropical semirings: shortest/longest path relaxations (APSP building block)
 MIN_PLUS = Semiring("min_plus", add=jnp.minimum, mul=jnp.add, zero=jnp.inf)
 MAX_PLUS = Semiring("max_plus", add=jnp.maximum, mul=jnp.add, zero=-jnp.inf)

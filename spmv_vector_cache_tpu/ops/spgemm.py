@@ -1,6 +1,6 @@
 """SpGEMM: sparse x sparse matrix multiply (CSR x CSR -> CSR).
 
-BASELINE.json config 4.  TPU-native split: a host-side **symbolic phase**
+BASELINE.json config 4.  A two-phase split: a host-side **symbolic phase**
 computes C's sparsity pattern and, for every output nonzero, the list of
 (A-nz, B-nz) product pairs that feed it; the **numeric phase** is then a
 fixed-shape device computation — two flat gathers + one sorted

@@ -1,107 +1,48 @@
-"""Pallas DIA SpMM: multi-RHS diagonal kernel (shift network).
+"""DIA SpMM: the multi-RHS diagonal executor.
 
-Extends :mod:`.spmv_dia` to ``Y = A @ B`` with k right-hand sides.  The
-RHS transposes to (k, cols) so each chunk of 8 RHS columns rides the
-untiled leading dim of a (8, x_rows, 128) x image — the *same* static
-lane/sublane shift network as the SpMV kernel then applies per diagonal
-with one extra broadcast axis, and the value tile (S, 128) broadcasts
-over the 8 RHS for free.  The nonzero stream is read once per 8-RHS
-chunk (the fused-SpMM point: value bytes amortize over the dense block),
-so the per-chunk byte cost stays 4 B/nnz + the x/y images.
-
-Feasibility: the x image must stay VMEM-resident per chunk
-(8 * x_rows * 512 B); wider matrices fall back to the SELL window SpMM
-or the XLA reference path (``spmm_plan`` dispatch handles this).
+Extends :mod:`.spmv_dia` to ``Y = A @ B`` with k right-hand sides: each
+diagonal multiplies one contiguous row slice of the padded B, so the value
+stream is read once for all k columns (4 B/nnz + the dense operands).
 """
 
 from __future__ import annotations
 
-import functools
-from typing import Any, Optional
+from typing import Any
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..formats.dia import DiaPlan
 from ..utils import platform
-from .spmv_dia import _decompose
+from .spmv_dia import _compute_dtype
 
 Array = Any
 
-RHS_CHUNK = 8
 
-
-def _make_dia_spmm_kernel(offsets, pad_left: int, S: int, acc_dtype):
-    dec = [_decompose(pad_left, o) for o in offsets]
-
-    def kernel(v_ref, x_ref, o_ref):
-        i = pl.program_id(1)
-        acc = jnp.zeros((RHS_CHUNK, S, 128), acc_dtype)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (RHS_CHUNK, S, 128), 2)
-        for k, (row_q, q, s) in enumerate(dec):
-            base = pl.multiple_of(i * S + row_q, 8)
-            wide = x_ref[0, :, pl.ds(base, S + 8), :]      # (8, S+8, 128)
-            a = wide[:, q:q + S + 1, :]
-            if s == 0:
-                xs = a[:, :S]
-            else:
-                rot = pltpu.roll(a, 128 - s, axis=2)
-                xs = jnp.where(lane < 128 - s, rot[:, :S], rot[:, 1:])
-            acc = acc + (v_ref[0, k].astype(acc_dtype)[None] *
-                         xs.astype(acc_dtype))
-        o_ref[0, 0] = acc
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _spmm_dia(plan: DiaPlan, bt: Array, interpret: bool = False) -> Array:
-    """bt: (k, cols) transposed RHS; returns y (rows, k)."""
-    T, D, S, _ = plan.vals.shape
+@jax.jit
+def _spmm_dia(plan: DiaPlan, b: Array) -> Array:
+    """b: (cols, k); returns y (rows, k)."""
+    T, D, S, R = plan.vals.shape
     rows, cols = plan.shape
-    k = bt.shape[0]
-    k8 = -(-k // RHS_CHUNK)
-    k_pad = k8 * RHS_CHUNK
-    xt = jnp.zeros((k_pad, plan.x_rows * 128), plan.vals.dtype)
-    xt = xt.at[:k, plan.pad_left:plan.pad_left + cols].set(
-        jnp.asarray(bt, plan.vals.dtype))
-    xt4 = xt.reshape(k8, RHS_CHUNK, plan.x_rows, 128)
-
-    kernel = _make_dia_spmm_kernel(plan.offsets, plan.pad_left, S,
-                                   plan.vals.dtype)
-    out = pl.pallas_call(
-        kernel,
-        grid=(k8, T),
-        in_specs=[
-            pl.BlockSpec((1, D, S, 128), lambda kc, i: (i, 0, 0, 0)),
-            pl.BlockSpec((1, RHS_CHUNK, plan.x_rows, 128),
-                         lambda kc, i: (kc, 0, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, 1, RHS_CHUNK, S, 128),
-                               lambda kc, i: (kc, i, 0, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((k8, T, RHS_CHUNK, S, 128),
-                                       plan.vals.dtype),
-        interpret=interpret,
-    )(plan.vals, xt4)
-    # (k8, T, 8, S, 128) -> (rows, k)
-    y = out.transpose(1, 3, 4, 0, 2).reshape(T * S * 128, k_pad)
-    return y[:rows, :k]
+    n = T * S * R
+    k = b.shape[1]
+    acc = _compute_dtype(plan.vals.dtype)
+    omax = max(max(plan.offsets, default=0), 0)
+    bp = jnp.pad(jnp.asarray(b, acc),
+                 ((plan.pad_left, max(n + omax, cols) - cols), (0, 0)))
+    v = plan.vals.reshape(T, D, S * R)
+    y = None
+    for d, o in enumerate(plan.offsets):
+        start = plan.pad_left + o
+        bs = jax.lax.slice(bp, (start, 0), (start + n, k))
+        term = v[:, d].reshape(n, 1).astype(acc) * bs
+        y = term if y is None else y + term
+    return y[:rows]
 
 
-def spmm_dia_feasible(plan: DiaPlan, budget_bytes: Optional[int] = None
-                      ) -> bool:
-    if budget_bytes is None:
-        budget_bytes = int(0.6 * platform.vmem_budget_bytes())
-    itemsize = jnp.dtype(plan.vals.dtype).itemsize
-    return RHS_CHUNK * plan.x_rows * 128 * itemsize <= budget_bytes
-
-
-def spmm_dia(plan: DiaPlan, b: Array, *,
-             interpret: Optional[bool] = None) -> Array:
-    """Fused DIA SpMM ``Y = A @ B`` (B: (cols, k))."""
-    if interpret is None:
-        interpret = platform.use_interpret()
-    bt = jnp.asarray(b).T
-    return _spmm_dia(plan, bt, interpret=interpret)
+def spmm_dia(plan: DiaPlan, b: Array) -> Array:
+    """DIA SpMM ``Y = A @ B`` (B: (cols, k))."""
+    if plan.double:
+        raise ValueError("double-float DIA plans have no SpMM executor")
+    platform.route()
+    return _spmm_dia(plan, jnp.asarray(b))

@@ -1,279 +1,29 @@
-"""Pallas DIA SpMV: gather-free diagonal kernel (shift network).
+"""DIA SpMV: the gather-free diagonal executor.
 
 The irregular access of SpMV (``x[col]`` in the CSR dual of the
 reference's scattered ``y[rowInd] +=``, SURVEY.md §2.4) disappears for
-diagonal nonzeros: with rows bound to (sublane, lane) positions, column
-``r + off`` is the row position shifted by a *constant* — so the kernel
-replaces the gather with a static shift network specialized per offset
-pattern, and the only hot stream left is the 4 B/nnz value stream (half
-the 8 B/nnz a CSR-format kernel must move).
+diagonal nonzeros: column ``r + off`` is the row shifted by a *constant*,
+so each diagonal reads one contiguous slice of the padded x vector and the
+only per-nonzero stream left is the 4 B/nnz value stream (half the
+8 B/nnz a CSR-format executor must move):
 
-Shift mechanics (Mosaic requires lane-dim addresses to be 128-aligned;
-only aligned dynamic loads are cheap):
+    y = sum_d vals[d] * x_pad[pad_left + off_d : pad_left + off_d + rows]
 
-* x arrives as a 2D (x_rows, 128) image of the padded flat vector;
-* each diagonal's flat offset ``F = pad_left + off`` decomposes as
-  ``F = 1024*Q + 128*q + s``: the kernel loads an aligned (S+8, 128)
-  window at dynamic row base ``i*S + 8Q`` (a multiple of 8), then applies
-  the static sublane slice ``q`` and static lane rotation ``s``
-  (``pltpu.roll`` + a one-sublane carry select);
-* y needs no fixup at all: rows stay in natural order, the output is the
-  (T, S, 128) partial image reshaped flat — the scatter side of the
-  reference (hazard queues, cache flush phases) has no residue here.
-
-Per-diagonal work is ~5 VPU ops per element; measured on a v5e this runs
-at ~170 Gnnz/s for a 27-diagonal 1M-row matrix — ~690 GB/s of value
-streaming, i.e. at the HBM speed of light for the 4 B/nnz format.
+over static slices, which XLA fuses into one loop.  y needs no fixup:
+rows stay in natural order.
 """
 
 from __future__ import annotations
 
-import functools
-from typing import Any, Optional
+from typing import Any
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..formats.dia import DiaPlan
 from ..utils import platform
-from .spmv_pallas import _fence_interpret
 
 Array = Any
-
-
-def _decompose(pad_left: int, off: int):
-    """F = pad_left + off -> (8*Q, q, s) static shift components."""
-    f = pad_left + off
-    assert f >= 0, "pad_left must cover the most negative offset"
-    q1024, rem = divmod(f, 1024)
-    q, s = divmod(rem, 128)
-    return 8 * q1024, q, s
-
-
-def _shift_lanes(a, s: int, S: int, lane):
-    """(S+1, 128) -> (S, 128) shifted by s lanes with one-sublane carry."""
-    if s == 0:
-        return a[:S]
-    rot = pltpu.roll(a, 128 - s, axis=1)
-    return jnp.where(lane < 128 - s, rot[:S], rot[1:])
-
-
-def _make_dia_kernel(offsets, pad_left: int, S: int, acc_dtype):
-    dec = [_decompose(pad_left, o) for o in offsets]
-
-    def kernel(v_ref, x_ref, o_ref):
-        i = pl.program_id(0)
-        acc = jnp.zeros((S, 128), acc_dtype)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (S, 128), 1)
-        for k, (row_q, q, s) in enumerate(dec):
-            base = pl.multiple_of(i * S + row_q, 8)
-            wide = x_ref[pl.ds(base, S + 8), :]
-            a = wide[q:q + S + 1]
-            xs = _shift_lanes(a, s, S, lane)
-            acc = acc + v_ref[0, k].astype(acc_dtype) * xs.astype(acc_dtype)
-        o_ref[0] = acc
-
-    return kernel
-
-
-def _make_dia_kernel_windowed(offsets, pad_left: int, S: int, J: int,
-                              acc_dtype):
-    """Kernel for x too large to keep VMEM-resident: step i sees J sliding
-    (S, 128) x blocks (block j = image rows [(i+j)*S, (i+j+1)*S)), streamed
-    by the Mosaic pipeliner; each diagonal's row window is assembled from
-    the statically-known blocks it spans."""
-    dec = [_decompose(pad_left, o) for o in offsets]
-    assert all(row_q + S + 8 <= J * S for row_q, _, _ in dec)
-
-    def kernel(v_ref, *rest):
-        x_blocks, o_ref = rest[:J], rest[J]
-        acc = jnp.zeros((S, 128), acc_dtype)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (S, 128), 1)
-        for k, (row_q, q, s) in enumerate(dec):
-            # rows [row_q, row_q + S + 8) out of the J-block window
-            j0, r0 = divmod(row_q, S)
-            parts, need = [], S + 8
-            j, r = j0, r0
-            while need > 0:
-                take = min(S - r, need)
-                parts.append(x_blocks[j][r:r + take])
-                need -= take
-                j, r = j + 1, 0
-            wide = parts[0] if len(parts) == 1 else \
-                jnp.concatenate(parts, axis=0)
-            a = wide[q:q + S + 1]
-            xs = _shift_lanes(a, s, S, lane)
-            acc = acc + v_ref[0, k].astype(acc_dtype) * xs.astype(acc_dtype)
-        o_ref[0] = acc
-
-    return kernel
-
-
-def _df_diag_accumulate(dec, v_ref, D, S, lane, load_window):
-    """Shared df64 diagonal loop: ``load_window(row_q) -> (wh, wl)``
-    provides each diagonal's (S+8, 128) hi/lo x rows (resident dynamic
-    slice or windowed block assembly)."""
-    from . import df64
-
-    acc_h = jnp.zeros((S, 128), jnp.float32)
-    acc_l = jnp.zeros((S, 128), jnp.float32)
-    for k, (row_q, q, s) in enumerate(dec):
-        wh, wl = load_window(row_q)
-        xh = _shift_lanes(wh[q:q + S + 1], s, S, lane)
-        xl = _shift_lanes(wl[q:q + S + 1], s, S, lane)
-        vh = v_ref[0, k]
-        vl = v_ref[0, D + k]
-        ph, pe = df64.two_prod(vh, xh)
-        pe = pe + (vh * xl + vl * xh)
-        ph, pe = df64.quick_two_sum(ph, pe)
-        acc_h, acc_l = df64.add(acc_h, acc_l, ph, pe)
-    return acc_h, acc_l
-
-
-def _make_dia_kernel_df(offsets, pad_left: int, S: int, D: int):
-    """Double-float (f64-equivalent) resident-x kernel: values arrive as
-    (hi, lo) f32 channel pairs (vals[:, :D] / vals[:, D:]), x as hi/lo
-    images; products and the accumulator use error-free transformations
-    (``ops/df64.py``) so the result carries ~2^-48 relative error —
-    precision parity with the reference's double-precision datapath
-    (``SemiringOp.scala:98-154``) on f32-only TPU vector hardware."""
-    dec = [_decompose(pad_left, o) for o in offsets]
-
-    def kernel(v_ref, xh_ref, xl_ref, oh_ref, ol_ref):
-        i = pl.program_id(0)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (S, 128), 1)
-
-        def load(row_q):
-            base = pl.multiple_of(i * S + row_q, 8)
-            return (xh_ref[pl.ds(base, S + 8), :],
-                    xl_ref[pl.ds(base, S + 8), :])
-
-        oh_ref[0], ol_ref[0] = _df_diag_accumulate(dec, v_ref, D, S, lane,
-                                                   load)
-
-    return kernel
-
-
-def _make_dia_kernel_df_windowed(offsets, pad_left: int, S: int, J: int,
-                                 D: int):
-    """df64 kernel for x too large to keep resident: like
-    :func:`_make_dia_kernel_windowed`, step i sees J sliding (S, 128)
-    blocks of EACH of the hi/lo x images, streamed by the Mosaic
-    pipeliner — f64 parity at any matrix size (VERDICT r3 #8)."""
-    dec = [_decompose(pad_left, o) for o in offsets]
-    assert all(row_q + S + 8 <= J * S for row_q, _, _ in dec)
-
-    def kernel(v_ref, *rest):
-        xh_blocks = rest[:J]
-        xl_blocks = rest[J:2 * J]
-        oh_ref, ol_ref = rest[2 * J], rest[2 * J + 1]
-        lane = jax.lax.broadcasted_iota(jnp.int32, (S, 128), 1)
-
-        def assemble(blocks, row_q):
-            j0, r0 = divmod(row_q, S)
-            parts, need = [], S + 8
-            j, r = j0, r0
-            while need > 0:
-                take = min(S - r, need)
-                parts.append(blocks[j][r:r + take])
-                need -= take
-                j, r = j + 1, 0
-            return parts[0] if len(parts) == 1 else \
-                jnp.concatenate(parts, axis=0)
-
-        def load(row_q):
-            return assemble(xh_blocks, row_q), assemble(xl_blocks, row_q)
-
-        oh_ref[0], ol_ref[0] = _df_diag_accumulate(dec, v_ref, D, S, lane,
-                                                   load)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "resident"))
-def spmv_dia_df(plan: DiaPlan, xh: Array, xl: Array,
-                interpret: bool = False,
-                resident: Optional[bool] = None):
-    """df64 SpMV from a double DiaPlan: (xh, xl) f32 pair in, (yh, yl)
-    f32 pair out — jit-composable; use :func:`spmv_dia_double` for the
-    float64-in/float64-out host convenience wrapper.
-
-    ``resident``: keep both hi/lo x images in VMEM (fastest) vs stream
-    sliding (S, 128) blocks of each (any matrix size); default decides by
-    the VMEM budget — f64 parity no longer caps at medium sizes."""
-    T, D2, S, _ = plan.vals.shape
-    D = D2 // 2
-    rows, cols = plan.shape
-    if resident is None:
-        # TWO x images + the double-width vals block must fit
-        footprint = 2 * plan.x_rows * 128 * 4 + 2 * D2 * S * 128 * 4
-        resident = footprint <= 2 * X_RESIDENT_BUDGET_BYTES
-    if resident:
-        x_rows = plan.x_rows
-    else:
-        J = window_blocks_needed(plan)
-        x_rows = -(-max(plan.x_rows, (T + J - 1) * S) // S) * S
-
-    def image(v):
-        flat = jnp.zeros((x_rows * 128,), jnp.float32)
-        flat = flat.at[plan.pad_left:plan.pad_left + cols].set(
-            jnp.asarray(v, jnp.float32))
-        return flat.reshape(x_rows, 128)
-
-    if resident:
-        kernel = _make_dia_kernel_df(plan.offsets, plan.pad_left, S, D)
-        x_specs = [pl.BlockSpec((x_rows, 128), lambda i: (0, 0))] * 2
-        x_ops = [image(xh), image(xl)]
-    else:
-        kernel = _make_dia_kernel_df_windowed(plan.offsets, plan.pad_left,
-                                              S, J, D)
-        x_specs = [pl.BlockSpec((S, 128), lambda i, j=j: (i + j, 0))
-                   for j in range(J)] * 2
-        x_ops = [image(xh)] * J + [image(xl)] * J
-    out_sds = jax.ShapeDtypeStruct((T, S, 128), jnp.float32)
-    yh, yl = pl.pallas_call(
-        kernel,
-        grid=(T,),
-        in_specs=[pl.BlockSpec((1, D2, S, 128), lambda i: (i, 0, 0, 0)),
-                  *x_specs],
-        out_specs=[pl.BlockSpec((1, S, 128), lambda i: (i, 0, 0)),
-                   pl.BlockSpec((1, S, 128), lambda i: (i, 0, 0))],
-        out_shape=[out_sds, out_sds],
-        interpret=interpret,
-    )(plan.vals, *x_ops)
-    yh, yl = _fence_interpret((yh, yl), interpret)
-    return yh.reshape(-1)[:rows], yl.reshape(-1)[:rows]
-
-
-def spmv_dia_double(plan: DiaPlan, x, *,
-                    interpret: Optional[bool] = None):
-    """``y = A @ x`` in f64-equivalent precision: float64 x in, float64 y
-    out (computed on TPU as hi/lo f32 pairs, joined on the host)."""
-    import numpy as np
-
-    from . import df64
-
-    if not plan.double:
-        raise ValueError("plan was not built with value_dtype=np.float64")
-    if interpret is None:
-        interpret = platform.use_interpret()
-    xh, xl = df64.split_f64(x)
-    yh, yl = spmv_dia_df(plan, xh, xl, interpret=interpret)
-    return df64.join_f64(np.asarray(yh), np.asarray(yl))
-
-
-#: resident x image budget: larger images stream as sliding blocks
-X_RESIDENT_BUDGET_BYTES = 8 << 20
-
-
-def window_blocks_needed(plan: DiaPlan) -> int:
-    """J: sliding (S, 128) x blocks per step for the windowed kernel."""
-    S = plan.sublanes
-    max_rowq = max((_decompose(plan.pad_left, o)[0] for o in plan.offsets),
-                   default=0)
-    return -(-(max_rowq + S + 8) // S)
 
 
 def _compute_dtype(vals_dtype):
@@ -284,59 +34,98 @@ def _compute_dtype(vals_dtype):
     return vals_dtype
 
 
-@functools.partial(jax.jit, static_argnames=("interpret", "resident"))
-def _spmv_dia(plan: DiaPlan, x: Array, interpret: bool = False,
-              resident: bool = True) -> Array:
-    T, D, S, _ = plan.vals.shape
-    rows, cols = plan.shape
-    acc_dtype = _compute_dtype(plan.vals.dtype)
-    if resident:
-        x_rows = plan.x_rows
-    else:
-        J = window_blocks_needed(plan)
-        x_rows = -(-max(plan.x_rows, (T + J - 1) * S) // S) * S
-    xr = jnp.zeros((x_rows * 128,), acc_dtype)
-    xr = xr.at[plan.pad_left:plan.pad_left + cols].set(
-        jnp.asarray(x, acc_dtype))
-    x2d = xr.reshape(x_rows, 128)
-    if resident:
-        kernel = _make_dia_kernel(plan.offsets, plan.pad_left, S, acc_dtype)
-        x_specs = [pl.BlockSpec((x_rows, 128), lambda i: (0, 0))]
-        x_ops = [x2d]
-    else:
-        kernel = _make_dia_kernel_windowed(plan.offsets, plan.pad_left, S,
-                                           J, acc_dtype)
-        x_specs = [pl.BlockSpec((S, 128), lambda i, j=j: (i + j, 0))
-                   for j in range(J)]
-        x_ops = [x2d] * J
-    out = pl.pallas_call(
-        kernel,
-        grid=(T,),
-        in_specs=[pl.BlockSpec((1, D, S, 128), lambda i: (i, 0, 0, 0)),
-                  *x_specs],
-        out_specs=pl.BlockSpec((1, S, 128), lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((T, S, 128), acc_dtype),
-        interpret=interpret,
-    )(plan.vals, *x_ops)
-    return _fence_interpret(out, interpret).reshape(-1)[:rows]
+def _padded(plan: DiaPlan, x: Array, dtype, n: int) -> Array:
+    """x with ``pad_left`` zeros in front and enough behind that every
+    diagonal's slice of ``n`` rows stays in bounds."""
+    cols = plan.shape[1]
+    omax = max(max(plan.offsets, default=0), 0)
+    right = max(n + omax, cols) - cols
+    return jnp.pad(jnp.asarray(x, dtype), (plan.pad_left, right))
 
 
-def spmv_dia(plan: DiaPlan, x: Array, *,
-             interpret: Optional[bool] = None,
-             resident: Optional[bool] = None) -> Array:
-    """``y = A @ x`` from a prebuilt :class:`DiaPlan`.
+def _diag_slices(plan: DiaPlan, xp: Array, n: int):
+    """Per diagonal k: the (T, S*128) x window its values multiply."""
+    T = plan.vals.shape[0]
+    for o in plan.offsets:
+        start = plan.pad_left + o
+        yield jax.lax.slice(xp, (start,), (start + n,)).reshape(T, -1)
 
-    ``resident``: keep the whole x image in VMEM (fastest) vs stream
-    sliding x blocks (any matrix size); default decides by VMEM budget.
-    """
+
+def dia_sum(vals: Array, xp: Array, starts) -> Array:
+    """``sum_k vals[:, k] * xp[starts[k] : starts[k] + n]`` over the
+    (T, D, S, 128) value layout, as one fused loop; returns the flat
+    (n,) result in the accumulation dtype.  ``starts`` are static."""
+    T, D, S, R = vals.shape
+    n = T * S * R
+    acc = _compute_dtype(vals.dtype)
+    v = vals.reshape(T, D, S * R)
+    y = None
+    for k, start in enumerate(starts):
+        xs = jax.lax.slice(xp, (start,), (start + n,)).reshape(T, -1)
+        term = v[:, k].astype(acc) * xs.astype(acc)
+        y = term if y is None else y + term
+    return y.reshape(-1)
+
+
+@jax.jit
+def _spmv_dia(plan: DiaPlan, x: Array) -> Array:
+    T, D, S, R = plan.vals.shape
+    xp = _padded(plan, x, _compute_dtype(plan.vals.dtype), T * S * R)
+    starts = tuple(plan.pad_left + o for o in plan.offsets)
+    return dia_sum(plan.vals, xp, starts)[:plan.shape[0]]
+
+
+def spmv_dia(plan: DiaPlan, x: Array) -> Array:
+    """``y = A @ x`` from a prebuilt :class:`DiaPlan`."""
     if plan.double:
         raise ValueError("double-float plan: use spmv_dia_double (f64 "
                          "host API) or spmv_dia_df (hi/lo pair, "
                          "jit-composable)")
-    if interpret is None:
-        interpret = platform.use_interpret()
-    if resident is None:
-        itemsize = jnp.dtype(plan.vals.dtype).itemsize
-        resident = plan.x_rows * 128 * itemsize <= X_RESIDENT_BUDGET_BYTES
-    return _spmv_dia(plan, jnp.asarray(x), interpret=interpret,
-                     resident=resident)
+    platform.route()
+    return _spmv_dia(plan, jnp.asarray(x))
+
+
+@jax.jit
+def spmv_dia_df(plan: DiaPlan, xh: Array, xl: Array):
+    """df64 SpMV from a double DiaPlan: (xh, xl) f32 pair in, (yh, yl)
+    f32 pair out — jit-composable; use :func:`spmv_dia_double` for the
+    float64-in/float64-out host convenience wrapper.  Values arrive as
+    (hi, lo) f32 channel pairs (``vals[:, :D]`` / ``vals[:, D:]``);
+    products and the accumulator use error-free transformations
+    (``ops/df64.py``), so the result carries ~2^-48 relative error —
+    precision parity with the reference's double-precision datapath
+    (``SemiringOp.scala:98-154``)."""
+    from . import df64
+
+    T, D2, S, R = plan.vals.shape
+    D = D2 // 2
+    n = T * S * R
+    v = plan.vals.reshape(T, D2, S * R)
+    xph = _padded(plan, xh, jnp.float32, n)
+    xpl = _padded(plan, xl, jnp.float32, n)
+    acc_h = jnp.zeros((T, S * R), jnp.float32)
+    acc_l = jnp.zeros((T, S * R), jnp.float32)
+    for k, (sh, sl) in enumerate(zip(_diag_slices(plan, xph, n),
+                                     _diag_slices(plan, xpl, n))):
+        vh, vl = v[:, k], v[:, D + k]
+        ph, pe = df64.two_prod(vh, sh)
+        pe = pe + (vh * sl + vl * sh)
+        ph, pe = df64.quick_two_sum(ph, pe)
+        acc_h, acc_l = df64.add(acc_h, acc_l, ph, pe)
+    rows = plan.shape[0]
+    return acc_h.reshape(-1)[:rows], acc_l.reshape(-1)[:rows]
+
+
+def spmv_dia_double(plan: DiaPlan, x):
+    """``y = A @ x`` in f64-equivalent precision: float64 x in, float64 y
+    out (computed as hi/lo f32 pairs on device, joined on the host)."""
+    import numpy as np
+
+    from . import df64
+
+    if not plan.double:
+        raise ValueError("plan was not built with value_dtype=np.float64")
+    platform.route()
+    xh, xl = df64.split_f64(x)
+    yh, yl = spmv_dia_df(plan, xh, xl)
+    return df64.join_f64(np.asarray(yh), np.asarray(yl))

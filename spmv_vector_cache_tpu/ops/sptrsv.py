@@ -1,11 +1,11 @@
 """Sparse triangular solve + ILU(0) factorization.
 
-BASELINE.json config 4's factorization path.  The TPU shape of a
+BASELINE.json config 4's factorization path.  The device shape of a
 triangular solve is **block-sequential, dense-parallel**: rows partition
 into 128-wide blocks; the strictly-triangular coupling *between* blocks is
 applied as a small dense matvec per step of a ``lax.scan`` over blocks,
 and the solve *inside* a block is a dense 128x128 triangular solve — all
-MXU/VPU work with static shapes, no data-dependent control flow (level
+dense work with static shapes, no data-dependent control flow (level
 scheduling's irregular wavefronts don't map to XLA; fixed block sweeps
 do).
 
@@ -25,6 +25,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..formats.containers import CSR
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 Array = Any
 
@@ -142,9 +144,9 @@ def trisolve(plan: TriSolvePlan, b: Array) -> Array:
             nb_idx = (bi - (w + 1)) if plan.lower else (bi + (w + 1))
             valid = jnp.logical_and(nb_idx >= 0, nb_idx < nb)
             xj = jnp.where(valid, 1.0, 0.0) * xs[jnp.clip(nb_idx, 0, nb - 1)]
-            return acc - off[bi, w] @ xj
+            return acc - jnp.dot(off[bi, w], xj, precision=HIGHEST)
         rhs = jax.lax.fori_loop(0, W, contrib, rhs)
-        xi = inv[bi] @ rhs
+        xi = jnp.dot(inv[bi], rhs, precision=HIGHEST)
         xs = xs.at[bi].set(xi)
         return xs, None
 

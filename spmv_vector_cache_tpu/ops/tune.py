@@ -4,9 +4,9 @@ The reference explores its design space by *synthesizing bitfiles* over
 ocmDepth x issueWindow x maxMiss x CMS grids and timing each on hardware
 (``gen-newcache.sh:3-11``, ``gen-bufferall.sh:3-8``).  Here a plan
 rebuild replaces a synthesis run: :func:`autotune_plan` builds a small
-candidate grid around the heuristic plan (grid-step width, window group
-tiles, uniform-split factor, stripe width, DIA sublanes, packed chunk
-width, cache tier cap — each the analog of one of the reference's
+candidate grid around the heuristic plan (DIA vs SELL, uniform-split
+factor, stripe width, cache tier cap and depth — each a knob that changes
+what the executors read, and the analog of one of the reference's
 generator knobs), times every candidate on device, and persists the
 winner keyed by a structural signature so later sessions skip the sweep
 (the role of the reference's named bitfile library,
@@ -18,14 +18,25 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
 Array = Any
 
-#: default on-disk store for tuned configurations
-DEFAULT_STORE = os.path.expanduser("~/.spmv_tpu_tuned.json")
+
+def _time_device(fn, *, iters: int = 10) -> float:
+    """Seconds per call of ``fn()``, after one warm-up call, waiting for
+    the device with ``block_until_ready``."""
+    import jax
+
+    jax.block_until_ready(fn())
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        y = fn()
+    jax.block_until_ready(y)
+    return (time.perf_counter() - t0) / iters
 
 
 def plan_signature(a) -> str:
@@ -86,42 +97,19 @@ def _candidates(a, base_plan, value_dtype, semiring
                                 Callable[[], Any]]]:
     """(name, params, builder) triples around the heuristic choice."""
     from ..formats.cached import CachedPlan, build_cached_plan
-    from ..formats.dia import DiaPlan, HybridPlan, build_dia_plan
-    from ..formats.packed import PackedPlan, build_packed_plan
+    from ..formats.dia import DiaPlan, HybridPlan
     from ..formats.plan import SellPlan, auto_plan, build_sell_plan
 
     cands: List[Tuple[str, Dict[str, Any], Callable[[], Any]]] = [
         ("auto", {}, lambda: base_plan)]
 
     if isinstance(base_plan, (DiaPlan, HybridPlan)):
-        dia_src = base_plan.dia if isinstance(base_plan, HybridPlan) \
-            else base_plan
-        for s in (16, 32, 64):
-            if s != dia_src.sublanes:
-                cands.append((f"dia_sublanes{s}", {"sublanes": s},
-                              lambda s=s: build_dia_plan(
-                                  a, sublanes=s,
-                                  value_dtype=value_dtype)))
         cands.append(("sell", {},
                       lambda: auto_plan(a, value_dtype=value_dtype,
                                         allow_dia=False,
                                         semiring=semiring)))
     elif isinstance(base_plan, SellPlan):
         st = base_plan.stats
-        for gps in {max(1, st.groups_per_step // 2),
-                    st.groups_per_step * 2} - {st.groups_per_step}:
-            cands.append((f"groups_per_step{gps}",
-                          {"groups_per_step": gps},
-                          lambda g=gps: build_sell_plan(
-                              a, value_dtype=value_dtype,
-                              groups_per_step=g)))
-        for wgt in (1, 2, 4):
-            if wgt != st.group_tiles and not st.uniform_parts:
-                cands.append((f"window_group_tiles{wgt}",
-                              {"window_group_tiles": wgt},
-                              lambda w=wgt: build_sell_plan(
-                                  a, value_dtype=value_dtype,
-                                  window_group_tiles=w)))
         if st.uniform_parts:
             for sp in (8, 16, 32):
                 cands.append((f"uniform_split{sp}", {"split": sp},
@@ -138,13 +126,6 @@ def _candidates(a, base_plan, value_dtype, semiring
                               lambda w=sw * f: build_sell_plan(
                                   a, value_dtype=value_dtype,
                                   stripe_width=w)))
-    elif isinstance(base_plan, PackedPlan):
-        for cb in (32, 64, 128):
-            if cb != base_plan.stats.chunk_blocks:
-                cands.append((f"chunk_blocks{cb}", {"chunk_blocks": cb},
-                              lambda c=cb: build_packed_plan(
-                                  a, chunk_blocks=c,
-                                  value_dtype=value_dtype)))
     elif isinstance(base_plan, CachedPlan):
         for mh in (512, 2048, 8192):
             if mh != base_plan.hot_cols.shape[0]:
@@ -172,8 +153,8 @@ def autotune_plan(a, *, value_dtype=np.float32,
     import jax.numpy as jnp
 
     from ..formats.plan import auto_plan
-    from .spmv_pallas import spmv_plan
-    from .strategy import _time_device, plan_nnz
+    from .spmv_exec import spmv_plan
+    from .strategy import plan_nnz
 
     sig = plan_signature(a)
     base = auto_plan(a, value_dtype=value_dtype, semiring=semiring)
@@ -200,12 +181,11 @@ def autotune_plan(a, *, value_dtype=np.float32,
     for name, params, build in cands:
         try:
             plan = build()
-            pd = plan.to_device()
-            dt = _time_device(lambda p=pd: spmv_plan(p, x,
-                                                     semiring=semiring),
-                              iters=iters)
-        except Exception:  # noqa: BLE001 — infeasible candidate
+        except ValueError:       # layout infeasible for this matrix
             continue
+        pd = plan.to_device()
+        dt = _time_device(lambda p=pd: spmv_plan(p, x, semiring=semiring),
+                          iters=iters)
         nnz = plan_nnz(plan)
         table.append(TuneEntry(name=name, seconds=dt,
                                gnnz_per_s=nnz / dt / 1e9 if dt else 0.0,

@@ -1,36 +1,34 @@
-"""Multi-chip DIA SpMV: row-partitioned diagonal plans with ppermute halos.
+"""Multi-device DIA SpMV: row-partitioned diagonal plans with ppermute halos.
 
-The banded structure that makes the single-chip DIA kernel gather-free
-(:mod:`..ops.spmv_dia`) also makes its multi-chip exchange minimal: a row
+The banded structure that makes the single-device DIA executor gather-free
+(:mod:`..ops.spmv_dia`) also makes its multi-device exchange minimal: a row
 block [d*rps, (d+1)*rps) only needs x entries within the diagonal span of
 its own rows, so each device fetches one left and one right **halo** of
 ``halo = round128(max(|offsets|))`` entries from its ring neighbors via
-``ppermute`` — O(band) bytes over ICI instead of the O(n) all-gather the
-general SELL path uses (``spmv_sharded.py``).  This is the distributed
+``ppermute`` — O(band) bytes over the device links instead of the O(n)
+all-gather the general SELL path uses (``spmv_sharded.py``).  This is the distributed
 version of the reference's central question — how much of the
 irregularly-accessed vector must be resident — answered per device.
 
 Ring wraparound at the edge shards delivers the other end's values into
 the halo, but every value slot referencing out-of-matrix columns is zero
 by construction, so the wrapped garbage multiplies to zero (the same
-padding discipline the single-chip kernels rely on).
+padding discipline the single-device executors rely on).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
-from typing import Any, Optional, Tuple
+from typing import Any, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..formats.dia import DIA, csr_to_dia
 from ..formats.plan import _as_csr
-from ..ops.spmv_dia import _make_dia_kernel
+from ..ops.spmv_dia import dia_sum
 from ..utils import platform
 
 Array = Any
@@ -42,7 +40,7 @@ class ShardedDiaPlan:
     """D-shard stack of DIA tile plans (uniform shapes for SPMD).
 
     ``vals``: (num_shards, T, D, S, 128); offsets are shared static aux
-    (all shards run the same shift network — one compiled program).
+    (all shards run the same diagonal slices — one compiled program).
     ``halo``: per-side x halo width (multiple of 128, >= max |offset|).
     """
 
@@ -53,19 +51,17 @@ class ShardedDiaPlan:
     rows_per_shard: int
     sublanes: int
     halo: int
-    x_rows: int          # local x image height (pad_left=halo included)
 
     def tree_flatten(self):
         return (self.vals,), (self.offsets, self.shape, self.num_shards,
-                              self.rows_per_shard, self.sublanes, self.halo,
-                              self.x_rows)
+                              self.rows_per_shard, self.sublanes, self.halo)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        offsets, shape, num_shards, rps, sublanes, halo, x_rows = aux
+        offsets, shape, num_shards, rps, sublanes, halo = aux
         return cls(vals=children[0], offsets=offsets, shape=shape,
                    num_shards=num_shards, rows_per_shard=rps,
-                   sublanes=sublanes, halo=halo, x_rows=x_rows)
+                   sublanes=sublanes, halo=halo)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -104,56 +100,27 @@ def build_sharded_dia_plan(a, num_shards: int, *, sublanes: int = 64,
             block = np.zeros((D, rps), value_dtype)
             block[:, :r1 - r0] = data[:, r0:r1]
             vals[d] = block.reshape(D, T, sublanes, 128).transpose(1, 0, 2, 3)
-
-    # local x image: pad_left = halo (holds the left neighbor's values),
-    # then rps + halo columns, plus the kernel's load overhang
-    max_rowq = max((8 * ((halo + o) // 1024) for o in offsets), default=0)
-    x_rows = max(T * sublanes + max_rowq + sublanes + 8,
-                 (halo + rps + halo + 127) // 128)
     return ShardedDiaPlan(vals=vals, offsets=offsets, shape=(rows, cols),
                           num_shards=num_shards, rows_per_shard=rps,
-                          sublanes=sublanes, halo=halo, x_rows=x_rows)
-
-
-@functools.partial(jax.jit, static_argnames=("offsets", "halo", "x_rows",
-                                             "interpret"))
-def _local_dia_spmv(vals, x_ext, *, offsets, halo, x_rows, interpret):
-    """One shard's SpMV: vals (T, D, S, 128); x_ext (halo+rps+halo,) local
-    x with both halos attached; pad_left = halo (real neighbor values live
-    where the single-chip kernel keeps zeros)."""
-    T, D, S, _ = vals.shape
-    xr = jnp.zeros((x_rows * 128,), vals.dtype)
-    xr = xr.at[:x_ext.shape[0]].set(x_ext.astype(vals.dtype))
-    x2d = xr.reshape(x_rows, 128)
-    kernel = _make_dia_kernel(offsets, halo, S, vals.dtype)
-    out = pl.pallas_call(
-        kernel,
-        grid=(T,),
-        in_specs=[
-            pl.BlockSpec((1, D, S, 128), lambda i: (i, 0, 0, 0)),
-            pl.BlockSpec((x_rows, 128), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, S, 128), lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((T, S, 128), vals.dtype),
-        interpret=interpret,
-    )(vals, x2d)
-    return out.reshape(-1)
+                          sublanes=sublanes, halo=halo)
 
 
 def spmv_dia_sharded(sp: ShardedDiaPlan, x: Array, mesh: Mesh, *,
-                     axis: str = "x",
-                     interpret: Optional[bool] = None) -> Array:
+                     axis: str = "x") -> Array:
     """Distributed ``y = A @ x``, x and y row-sharded over ``axis``.
 
     Exchange = two ``ppermute`` halo shifts of ``halo`` entries each —
-    O(band) ICI traffic, fully overlappable with the local value stream.
+    O(band) traffic over the device links, independent of the local
+    value stream.  Each shard then runs the single-device diagonal
+    executor (:func:`..ops.spmv_dia.dia_sum`) on its halo-extended x.
     """
-    if interpret is None:
-        interpret = platform.use_interpret()
+    platform.route()
     Dsh, rps, halo = sp.num_shards, sp.rows_per_shard, sp.halo
     rows = sp.shape[0]
     xp = jnp.zeros(Dsh * rps, sp.vals.dtype).at[:rows].set(
         jnp.asarray(x, sp.vals.dtype))
+    # local column c of a shard lives at x_ext[halo + c]
+    starts = [halo + o for o in sp.offsets]
 
     def local_fn(vals, x_shard):
         vals = vals[0]
@@ -168,13 +135,9 @@ def spmv_dia_sharded(sp: ShardedDiaPlan, x: Array, mesh: Mesh, *,
             x_ext = jnp.concatenate([left, x_shard, right])
         else:
             x_ext = x_shard
-        y = _local_dia_spmv(vals, x_ext, offsets=sp.offsets,
-                            halo=halo, x_rows=sp.x_rows,
-                            interpret=interpret)
-        return y[None, :]
+        return dia_sum(vals, x_ext, starts)[None, :]
 
     fn = jax.shard_map(local_fn, mesh=mesh,
-                       in_specs=(P(axis), P(axis)), out_specs=P(axis),
-                       check_vma=False)
+                       in_specs=(P(axis), P(axis)), out_specs=P(axis))
     y = fn(sp.vals, xp.reshape(Dsh, rps))
     return y.reshape(-1)[:rows]

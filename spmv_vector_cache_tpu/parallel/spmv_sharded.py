@@ -1,4 +1,4 @@
-"""Multi-chip SpMV/SpMM: row-partitioned plans under shard_map.
+"""Multi-device SpMV/SpMM: row-partitioned plans under shard_map.
 
 The reference is a single-chip accelerator — its only "scaling" mechanism
 is swapping bitfiles (``devcfg.cpp``); SURVEY.md §2.4 calls out multi-chip
@@ -13,17 +13,15 @@ vector, overlap with per-shard compute.
   per-device shapes.
 * **x exchange**: the dense vector is row-sharded like y; before the local
   SpMV each device assembles the x segments it needs:
-  - ``all_gather`` mode (general matrices): x all-gathered over ICI — the
-    bandwidth-robust default;
+  - ``all_gather`` mode (general matrices): x all-gathered over the device
+    links — the bandwidth-robust default;
   - ``halo`` mode (banded matrices): each device fetches only neighbor
     halos via ``ppermute`` — the ``maxColSpan``/bandwidth analysis
     (``SparseMatrix.cpp:110-119``) decides eligibility, exactly as it
     guided buffer sizing in the reference.
-* Per-shard compute is the **same single-chip Pallas kernel** (the local
-  arrays reassemble into a :class:`SellPlan` inside the shard); on hosts
-  without Mosaic the XLA executor path substitutes.  Results concatenate
-  along the row axis with no cross-device reduction, because rows are
-  uniquely owned.
+* Per-shard compute is the **same single-device SELL executor** over the
+  shard's tiles.  Results concatenate along the row axis with no
+  cross-device reduction, because rows are uniquely owned.
 """
 
 from __future__ import annotations
@@ -38,8 +36,8 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from ..formats import analysis
 from ..formats.containers import CSR
-from ..formats.plan import (WINDOW_GROUP_TILES, PlanStats, SellPlan,
-                            _as_csr, build_sell_plan, compute_cols_win)
+from ..formats.plan import (WINDOW_GROUP_TILES, _as_csr, build_sell_plan,
+                            compute_cols_win)
 from ..utils import platform
 
 Array = Any
@@ -54,8 +52,7 @@ class ShardedPlan:
     (D, T, P, R); ``rows_per_shard`` is the uniform row-block height
     (multiple of 128; last block zero-padded).  ``halo`` is the column
     halo width each side (multiple of 128) for the banded exchange mode
-    (0 = not banded / use all-gather).  ``template_aux`` reconstructs a
-    local :class:`SellPlan` inside the shard.
+    (0 = not banded / use all-gather).
     """
 
     vals: Array          # (D, T, P, R)
@@ -69,7 +66,7 @@ class ShardedPlan:
     rows_per_shard: int
     identity_map: bool
     halo: int
-    window_blocks: int   # merged K (0 = window kernel infeasible somewhere)
+    window_blocks: int   # merged K (0 = some shard's span is over the cap)
     max_window_base: int
     groups_per_step: int
 
@@ -127,15 +124,14 @@ def build_sharded_plan(a, num_shards: int, *, value_dtype=np.float32,
             np.full(rps - (r1 - r0), e1 - e0, np.int64)]).astype(np.int32)
         sub = CSR(data=data[e0:e1], indices=indices[e0:e1],
                   indptr=local_indptr, shape=(rps, cols_n))
-        # grain fixed at 128: the halo mode shifts window_base in-graph
-        # by whole 128-lane blocks (see cols_win invariance note below)
+        # grain fixed at 128 so cols_win stays valid under the halo
+        # mode's shift by whole 128-column blocks (note below)
         plans.append(build_sell_plan(
             sub, value_dtype=value_dtype, sigma=sigma, split=split,
             max_window_blocks=max_window_blocks, window_grain=128))
 
     wb_feasible_pre = all(p.stats.window_blocks > 0 for p in plans)
-    groups = min(p.stats.groups_per_step for p in plans) \
-        if wb_feasible_pre else 8
+    groups = 1
     T = _round_up(max(p.num_tiles for p in plans), 8 * groups)
     S = max(p.num_slices for p in plans)
     D = num_shards
@@ -186,32 +182,17 @@ def build_sharded_plan(a, num_shards: int, *, value_dtype=np.float32,
 
 
 # ---------------------------------------------------------------------------
-# local (per-shard) executors
+# per-shard executors
 # ---------------------------------------------------------------------------
 
-def _local_plan(sp: ShardedPlan, vals, cols, cols_win, tile_slice,
-                window_base, row_map, x_len: int, max_wb: int) -> SellPlan:
-    """Reassemble a single-shard SellPlan from shard-local arrays."""
-    T, P, R = vals.shape
-    stats = PlanStats(
-        nnz=0, num_tiles=T, num_slices=sp.num_slices,
-        num_subrows=sp.rows_per_shard, num_splits=0, num_stripes=1,
-        padded_slots=0, fill=0.0,
-        window_blocks=sp.window_blocks, max_window_base=max_wb,
-        groups_per_step=sp.groups_per_step)
-    return SellPlan(vals=vals, cols=cols, cols_win=cols_win,
-                    tile_slice=tile_slice,
-                    window_base=window_base, row_map=row_map,
-                    window_rows=jnp.zeros((0,), jnp.int32),
-                    shape=(sp.rows_per_shard, x_len), lane_rows=R,
-                    positions=P, identity_map=sp.identity_map, stats=stats)
+def _local_spmv(vals, cols, tile_slice, row_map, x_full, *,
+                num_slices: int, rows_local: int, identity: bool):
+    """One shard's SpMV: the single-device SELL gather-reduce executor
+    (``ops.spmv_exec._tile_partials``) over the shard's tiles, then the
+    tile -> slice fold and row fixup."""
+    from ..ops.spmv_exec import _tile_partials
 
-
-def _local_spmv_xla(vals, cols, tile_slice, row_map, x_full, *,
-                    num_slices: int, rows_local: int, identity: bool):
-    """Per-shard SpMV in pure XLA (portable fallback; slow gather)."""
-    xg = jnp.take(x_full, cols, axis=0)                    # (T, P, R)
-    partial_t = jnp.sum(vals * xg, axis=1)                 # (T, R)
+    partial_t = _tile_partials(vals, cols, x_full, "plus_times")  # (T, R)
     y2d = jax.ops.segment_sum(partial_t, tile_slice, num_segments=num_slices,
                               indices_are_sorted=True)
     flat = y2d.reshape(-1)
@@ -222,30 +203,21 @@ def _local_spmv_xla(vals, cols, tile_slice, row_map, x_full, *,
 
 
 def spmv_sharded(sp: ShardedPlan, x: Array, mesh: Mesh, *,
-                 axis: str = "x", mode: str = "auto",
-                 use_pallas: Optional[bool] = None,
-                 interpret: Optional[bool] = None) -> Array:
+                 axis: str = "x", mode: str = "auto") -> Array:
     """Distributed ``y = A @ x`` with x and y row-sharded over ``axis``.
 
     ``mode``: 'all_gather' | 'halo' | 'auto' (halo when the plan's
-    bandwidth permits).  ``use_pallas``: run the single-chip Pallas window
-    kernel per shard (default: when feasible and on TPU or in interpret
-    mode).  Returns y (unsharded host view; sharded under jit).
+    bandwidth permits).  Returns y (unsharded host view; sharded under
+    jit).
     """
+    platform.route()
     if mode == "auto":
         mode = "halo" if 0 < sp.halo <= sp.rows_per_shard else "all_gather"
-    if interpret is None:
-        interpret = platform.use_interpret()
-    if use_pallas is None:
-        use_pallas = sp.window_blocks > 0
-    use_pallas = use_pallas and sp.window_blocks > 0
     D, rps = sp.num_shards, sp.rows_per_shard
     rows = sp.shape[0]
     num_slices = sp.num_slices
     identity = sp.identity_map
     halo = sp.halo
-
-    from ..ops.spmv_pallas import spmv_plan as run_plan
 
     if sp.shape[1] > D * rps:
         raise ValueError(
@@ -255,26 +227,13 @@ def spmv_sharded(sp: ShardedPlan, x: Array, mesh: Mesh, *,
     xp = jnp.zeros(D * rps, sp.vals.dtype).at[:sp.shape[1]].set(
         jnp.asarray(x, sp.vals.dtype))
 
-    # static geometry per mode
-    if mode == "all_gather":
-        x_len = D * rps
-        max_wb = sp.max_window_base
-    else:
-        x_len = rps + 2 * halo
-        # local wb = global wb - (d*rps - halo)/128 (clip only affects
-        # all-zero padding tiles); pad x generously so wb+K always fits
-        max_wb = x_len // 128
-
-    def local_fn(vals, cols, cols_win, tile_slice, window_base, row_map,
-                 x_shard):
-        vals, cols, cols_win = vals[0], cols[0], cols_win[0]
+    def local_fn(vals, cols, tile_slice, row_map, x_shard):
+        vals, cols = vals[0], cols[0]
         tile_slice, row_map = tile_slice[0], row_map[0]
-        window_base = window_base[0]
         x_shard = x_shard.reshape(-1)                     # (rps,)
         if mode == "all_gather":
             x_full = jax.lax.all_gather(x_shard, axis).reshape(-1)
             cols_local = cols
-            wb_local = window_base
         else:
             d = jax.lax.axis_index(axis)
             left = jax.lax.ppermute(x_shard[-halo:], axis,
@@ -282,65 +241,41 @@ def spmv_sharded(sp: ShardedPlan, x: Array, mesh: Mesh, *,
             right = jax.lax.ppermute(x_shard[:halo], axis,
                                      [(i, (i - 1) % D) for i in range(D)])
             x_full = jnp.concatenate([left, x_shard, right])
-            shift = d * rps - halo                        # multiple of 128
+            shift = d * rps - halo
+            # the clip only moves padding slots (value 0) of edge shards
             cols_local = jnp.clip(cols - shift, 0, x_full.shape[0] - 1)
-            wb_local = jnp.clip(window_base - shift // 128, 0, max_wb)
-        if use_pallas:
-            lp = _local_plan(sp, vals, cols_local, cols_win, tile_slice,
-                             wb_local, row_map, x_len, max_wb)
-            y_local = run_plan(lp, x_full, strategy="window",
-                               interpret=interpret)
-        else:
-            y_local = _local_spmv_xla(
-                vals, cols_local, tile_slice, row_map, x_full,
-                num_slices=num_slices, rows_local=rps, identity=identity)
+        y_local = _local_spmv(
+            vals, cols_local, tile_slice, row_map, x_full,
+            num_slices=num_slices, rows_local=rps, identity=identity)
         return y_local[None, :]
 
     fn = jax.shard_map(
         local_fn, mesh=mesh,
-        in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis), P(axis),
-                  P(axis)),
-        out_specs=P(axis), check_vma=False)  # pallas_call lacks vma metadata
-    y = fn(sp.vals, sp.cols, sp.cols_win, sp.tile_slice, sp.window_base,
-           sp.row_map, xp.reshape(D, rps))
+        in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis)),
+        out_specs=P(axis))
+    y = fn(sp.vals, sp.cols, sp.tile_slice, sp.row_map, xp.reshape(D, rps))
     return y.reshape(-1)[:rows]
 
 
 def spmm_sharded(sp: ShardedPlan, b: Array, mesh: Mesh, *,
-                 axis: str = "x", use_pallas: Optional[bool] = None,
-                 interpret: Optional[bool] = None) -> Array:
-    """Distributed ``Y = A @ B`` (B replicated, Y row-sharded).
+                 axis: str = "x") -> Array:
+    """Distributed ``Y = A @ B`` (B replicated, Y row-sharded): each
+    shard runs the single-device SELL SpMM executor
+    (``ops.spmm_exec.sell_spmm_partials``), which reads the nonzero
+    stream once for all k right-hand sides."""
+    from ..ops.spmm_exec import sell_spmm_partials
 
-    When the plan is window-feasible, each shard runs the fused windowed
-    SpMM Pallas kernel (the nonzero stream amortizes over 8-RHS chunks,
-    ``ops/spmm_pallas.py``); otherwise a portable XLA einsum path."""
-    if interpret is None:
-        interpret = platform.use_interpret()
-    if use_pallas is None:
-        use_pallas = sp.window_blocks > 0
-    use_pallas = use_pallas and sp.window_blocks > 0
+    platform.route()
     D, rps = sp.num_shards, sp.rows_per_shard
     rows = sp.shape[0]
     num_slices = sp.num_slices
     identity = sp.identity_map
     k = b.shape[1]
 
-    from ..ops.spmm_pallas import _spmm_window
-
-    def local_fn(vals, cols, cols_win, tile_slice, window_base, row_map,
-                 b_full):
+    def local_fn(vals, cols, tile_slice, row_map, b_full):
         vals, cols = vals[0], cols[0]
-        cols_win, window_base = cols_win[0], window_base[0]
         tile_slice, row_map = tile_slice[0], row_map[0]
-        if use_pallas:
-            lp = _local_plan(sp, vals, cols, cols_win, tile_slice,
-                             window_base, row_map, D * rps,
-                             sp.max_window_base)
-            y_local = _spmm_window(lp, b_full.T, interpret=interpret)
-            return y_local[None]
-        bg = jnp.take(b_full, cols, axis=0)                 # (T, P, R, k)
-        contrib = jnp.einsum("tpr,tprk->trk", vals, bg,
-                             preferred_element_type=vals.dtype)
+        contrib = sell_spmm_partials(vals, cols, b_full)   # (T, R, k)
         y3d = jax.ops.segment_sum(contrib, tile_slice,
                                   num_segments=num_slices,
                                   indices_are_sorted=True)  # (S, R, k)
@@ -354,11 +289,9 @@ def spmm_sharded(sp: ShardedPlan, b: Array, mesh: Mesh, *,
     bp = bp.at[:sp.shape[1]].set(jnp.asarray(b, sp.vals.dtype))
     fn = jax.shard_map(
         local_fn, mesh=mesh,
-        in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis), P(axis),
-                  P()),
-        out_specs=P(axis), check_vma=False)
-    y = fn(sp.vals, sp.cols, sp.cols_win, sp.tile_slice, sp.window_base,
-           sp.row_map, bp)
+        in_specs=(P(axis), P(axis), P(axis), P(axis), P()),
+        out_specs=P(axis))
+    y = fn(sp.vals, sp.cols, sp.tile_slice, sp.row_map, bp)
     return y.reshape(-1, k)[:rows]
 
 

@@ -59,15 +59,17 @@ def scircuit_like():
     return _to_csr(r, r + off, (n, n), rng)
 
 
-def webbase_like():
+def webbase_like(scale: float = 1.0, seed: int = 43):
     """Williams/webbase-1M: 1,000,005^2, ~3.1M nnz (~3.1/row) web link
     graph — power-law out-degree rows AND in-degree columns (zipf column
-    popularity), weak locality, a few huge hub rows."""
-    n = 1_000_005
-    rng = np.random.default_rng(43)
+    popularity), weak locality, a few huge hub rows.  ``scale`` multiplies
+    the row count and the hub count; the degree distributions are kept."""
+    n = int(1_000_005 * scale)
+    nhubs = max(1, int(60 * scale))
+    rng = np.random.default_rng(seed)
     lens = np.minimum(rng.zipf(2.1, n), 4700)
-    hubs = rng.choice(n, 60, replace=False)           # directory pages
-    lens[hubs] = rng.integers(1_000, 4_700, 60)
+    hubs = rng.choice(n, nhubs, replace=False)        # directory pages
+    lens[hubs] = rng.integers(1_000, 4_700, nhubs)
     r = np.repeat(np.arange(n), lens)
     # zipf-popular columns, shuffled so popularity carries no locality;
     # hub rows link widely (uniform targets) like real directory pages
@@ -127,6 +129,35 @@ def qcd_like():
     k = rng.integers(0, 8, r.shape[0])
     c = nbrs[(r // 12), k] * 12 + rng.integers(0, 12, r.shape[0])
     return _to_csr(r, c, (n, n), rng)
+
+
+def banded(n: int, ndiag: int = 27, seed: int = 0):
+    """bench.py's headline matrix: n x n scipy CSR with ``ndiag`` full
+    diagonals centred on the main one (f32)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    offs = list(range(-(ndiag // 2), ndiag // 2 + 1))
+    m = sp.spdiags(rng.standard_normal((ndiag, n)).astype(np.float32),
+                   offs, n, n).tocsr()
+    m.sort_indices()
+    return m.astype(np.float32)
+
+
+def block_random(n: int, per_row: int = 27, blk: int = 128, seed: int = 1):
+    """bench.py's general-path matrix: each row's nonzeros at random
+    columns inside its 128-column block, so no diagonal is dense (scipy
+    CSR, f32)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(n, dtype=np.int64), per_row)
+    c = (r // blk) * blk + rng.integers(0, blk, r.shape[0])
+    m = sp.csr_matrix((rng.standard_normal(r.shape[0]).astype(np.float32),
+                       (r, c)), shape=(n, n))
+    m.sum_duplicates()
+    m.sort_indices()
+    return m
 
 
 #: name -> (generator, published dims/nnz note)

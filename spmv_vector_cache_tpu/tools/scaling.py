@@ -2,10 +2,10 @@
 
 Measures row-partitioned sharded SpMV at increasing device counts with a
 problem that grows proportionally (weak scaling), and reports efficiency
-= T(1) / T(N) for N-times the work.  On a real pod slice the mesh spans
-chips over ICI; on a CPU host the same harness runs functionally over
-virtual devices (numbers then characterize the harness, not hardware —
-flagged in the output).
+= T(1) / T(N) for N-times the work.  On a multi-GPU host the mesh spans
+the cards; on a CPU host the same harness runs functionally over virtual
+devices (numbers then characterize the harness, not hardware — every row
+names the device it ran on).
 
 Usage:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -25,8 +25,8 @@ import numpy as np
 def weak_scaling(rows_per_device: int = 1 << 16, ndiag: int = 17,
                  iters: int = 10, device_counts=None, mode: str = "sell",
                  log=sys.stderr) -> List[Dict[str, Any]]:
-    """``mode``: 'sell' (general window kernel + all-gather/halo) or 'dia'
-    (diagonal shift kernel + ppermute halos — the banded fast path)."""
+    """``mode``: 'sell' (general executor + all-gather/halo) or 'dia'
+    (diagonal executor + ppermute halos — the banded fast path)."""
     import jax
     import jax.numpy as jnp
     import scipy.sparse as sp
@@ -37,9 +37,9 @@ def weak_scaling(rows_per_device: int = 1 << 16, ndiag: int = 17,
     from ..parallel.spmv_sharded import (build_sharded_plan, make_mesh,
                                          spmv_sharded)
     from ..utils import roofline
-    from ..utils.platform import is_tpu
 
     ndev_avail = len(jax.devices())
+    d0 = jax.devices()[0]
     counts = [d for d in (device_counts or (1, 2, 4, 8)) if d <= ndev_avail]
     rng = np.random.default_rng(0)
     results = []
@@ -82,7 +82,7 @@ def weak_scaling(rows_per_device: int = 1 << 16, ndiag: int = 17,
         row = {"devices": nd, "rows": n, "nnz": a.nnz, "ok": bool(ok),
                "seconds": dt, "gnnz_per_s": a.nnz / dt / 1e9,
                "weak_scaling_efficiency": eff,
-               "hardware": "tpu" if is_tpu() else "cpu-virtual"}
+               "platform": d0.platform, "device_kind": d0.device_kind}
         results.append(row)
         print(f"devices={nd} ok={ok} {row['gnnz_per_s']:.2f} Gnnz/s "
               f"eff={eff:.2f}", file=log, flush=True)

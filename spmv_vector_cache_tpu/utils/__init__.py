@@ -1,2 +1,2 @@
-from . import platform, stats  # noqa: F401
+from . import cache, platform, stats  # noqa: F401
 from .stats import StatRegistry, csv_header, csv_rows  # noqa: F401

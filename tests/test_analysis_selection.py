@@ -14,7 +14,7 @@ from spmv_vector_cache_tpu.formats.containers import COO
 from spmv_vector_cache_tpu.formats.convert import coo_to_csr, from_scipy
 from spmv_vector_cache_tpu.formats.plan import auto_plan
 from spmv_vector_cache_tpu.ops import reference
-from spmv_vector_cache_tpu.ops.spmv_pallas import spmv_plan
+from spmv_vector_cache_tpu.ops.spmv_exec import spmv_plan
 
 
 def test_row_spans_and_column_working_set(rng):
@@ -51,11 +51,10 @@ def _clustered_cols_matrix(rng, rows=20000, cols=1 << 20, nclusters=8,
 
 
 def test_working_set_analysis_flips_striping_to_compact_tier(rng):
-    """Without the maxAlive-dual gate this structure satisfies the
-    striping ratio (>= 4 nnz/piece) and would build a striped plan whose
-    epilogue merges ~nnz/8 sub-row pieces; the analysis sees a <= 1024
-    column working set and flips to a full-coverage compact tier
-    (resident kernel, no piece merge)."""
+    """This structure satisfies the striping ratio (>= 4 nnz/piece), and
+    the analysis sees a <= 2048 column working set that a full-coverage
+    compact tier could serve; the cost model weighs both against the
+    plain layout."""
     a = _clustered_cols_matrix(rng)
     ws = analysis.column_working_set(a)
     assert ws <= 2048
@@ -68,12 +67,19 @@ def test_working_set_analysis_flips_striping_to_compact_tier(rng):
     ch[1:] = (nz_row[1:] != nz_row[:-1]) | (stripe[1:] != stripe[:-1])
     assert a.nnz / ch.sum() >= 4.0
     plan = auto_plan(a)
-    assert isinstance(plan, CachedPlan) and plan.coverage == 1.0
-    assert plan.cold is None
-    from spmv_vector_cache_tpu.ops.strategy import select_strategy
-    assert select_strategy(plan.hot) in ("window", "resident")
+    # an x this narrow stays cache-resident on the GPU, so the cost
+    # model keeps the plain layout over both the striped plan and the
+    # compact tier (which used to win here)
+    from spmv_vector_cache_tpu.formats.plan import SellPlan
+    assert isinstance(plan, SellPlan) and plan.stats.num_stripes == 1
+    from spmv_vector_cache_tpu.formats.cached import _compact_full_cover
+    fc = _compact_full_cover(a, dict(value_dtype=np.float32, lane_rows=128,
+                                     positions=8, max_window_blocks=16,
+                                     pad_value=0.0))
+    assert isinstance(fc, CachedPlan) and fc.coverage == 1.0
+    assert fc.cold is None
     x = rng.standard_normal(a.shape[1]).astype(np.float32)
-    y = np.asarray(spmv_plan(plan.to_device(), x, interpret=True))
+    y = np.asarray(spmv_plan(plan.to_device(), x))
     want = reference.spmv_numpy(a, x.astype(np.float64))
     np.testing.assert_allclose(y, want, rtol=1e-4, atol=1e-4)
 
@@ -93,15 +99,15 @@ def test_span_analysis_narrows_stripe_width(rng):
     spans = analysis.row_spans(a)
     assert np.percentile(spans[spans > 0], 95) < 512
     plan = auto_plan(a)
-    # r5: the cost model vetoes the striped plan this analysis used to
+    # the cost model vetoes the striped plan this analysis used to
     # force — at 30K scattered 16-nnz rows over 1M columns, stripe-pure
-    # slice padding collapses fill to ~3% (streaming 35x the matrix), so
-    # the locality-free packed floor wins.  Whatever the selector emits,
-    # it must not be a fill-collapsed SELL layout.
+    # slice padding collapses fill to ~3% (streaming 35x the matrix).
+    # Whatever the selector emits, it must not be a fill-collapsed SELL
+    # layout.
     from spmv_vector_cache_tpu.formats.plan import SellPlan
     if isinstance(plan, SellPlan):
         assert plan.stats.fill >= 0.05
     x = rng.standard_normal(a.shape[1]).astype(np.float32)
-    y = np.asarray(spmv_plan(plan.to_device(), x, interpret=True))
+    y = np.asarray(spmv_plan(plan.to_device(), x))
     want = reference.spmv_numpy(a, x.astype(np.float64))
     np.testing.assert_allclose(y, want, rtol=1e-4, atol=1e-4)

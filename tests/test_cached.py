@@ -1,4 +1,4 @@
-"""CachedPlan (hot/cold column split) + deep strategy — the
+"""CachedPlan (hot/cold column split) + windowless SELL plans — the
 locality-poor execution paths (BufferSel / BufferNone analogs)."""
 
 import warnings
@@ -13,8 +13,8 @@ from spmv_vector_cache_tpu.formats.cached import (CachedPlan,
                                                   column_frequency,
                                                   hot_set_coverage)
 from spmv_vector_cache_tpu.formats.convert import from_scipy
-from spmv_vector_cache_tpu.ops import reference, spmv_pallas
-from spmv_vector_cache_tpu.ops.spmv_pallas import spmv_plan
+from spmv_vector_cache_tpu.ops import reference
+from spmv_vector_cache_tpu.ops.spmv_exec import spmv_plan
 from spmv_vector_cache_tpu.ops.strategy import (execution_counters,
                                                 select_strategy)
 from tests.conftest import random_csr
@@ -59,19 +59,25 @@ def test_build_cached_plan_structure(rng):
     cold_nnz = plan_nnz(p.cold) if p.cold is not None else 0
     assert p.hot.stats.nnz + cold_nnz == a.nnz
     assert abs(p.coverage - p.hot.stats.nnz / a.nnz) < 1e-9
-    # the hot compact domain admits a fast kernel by construction
-    assert select_strategy(p.hot) in ("window", "resident")
+    # the hot part is an ordinary SELL plan over the compact domain
+    assert select_strategy(p.hot) == "sell"
 
 
 def test_auto_plan_picks_cached_and_matches_reference(rng):
     a = powerlaw_cols_csr(rng)
+    # a 65K-column x (256 KB) stays in the GPU's L2, so the plain gather
+    # beats the hot/cold split (which used to win): the planner keeps the
+    # plain layout; the split still executes correctly and counts its
+    # hits and misses
     p = planmod.auto_plan(a)
-    assert isinstance(p, CachedPlan)
+    assert not isinstance(p, CachedPlan)
+    c_plan = build_cached_plan(a)
     x = rng.standard_normal(a.shape[1]).astype(np.float32)
-    y = np.asarray(spmv_plan(p, x))
     want = _want(a, x)
-    np.testing.assert_allclose(y, want, rtol=1e-4, atol=1e-5)
-    c = execution_counters(p)
+    for plan in (p, c_plan):
+        y = np.asarray(spmv_plan(plan, x))
+        np.testing.assert_allclose(y, want, rtol=1e-4, atol=1e-5)
+    c = execution_counters(c_plan)
     assert c["hot_hits"] + c["cold_misses"] == a.nnz
 
 
@@ -99,32 +105,33 @@ def test_cached_plan_refused_without_skew(rng):
     assert build_cached_plan(a) is None
 
 
-def test_deep_strategy_matches_reference(rng):
+def test_windowless_sell_matches_reference(rng):
     a = random_csr(rng, 300, 40960, density=0.002)   # 320 blocks, no skew
     p = planmod.build_sell_plan(a)
     assert p.stats.window_blocks == 0
-    assert select_strategy(p) == "deep"
+    assert select_strategy(p) == "sell"
     x = rng.standard_normal(a.shape[1]).astype(np.float32)
-    y = np.asarray(spmv_plan(p, x, strategy="deep"))
+    y = np.asarray(spmv_plan(p, x))
     np.testing.assert_allclose(y, _want(a, x), rtol=1e-4, atol=1e-5)
 
 
-def test_deep_rejects_too_wide(rng):
-    cols = (spmv_pallas.DEEP_MAX_BLOCKS + 1) * 128
+def test_very_wide_windowless_executes(rng):
+    cols = 2049 * 128                  # wider than any per-block scheme
     a = random_csr(rng, 32, cols, density=0.0004)
     p = planmod.build_sell_plan(a)
-    with pytest.raises(ValueError, match="DEEP_MAX_BLOCKS"):
-        spmv_plan(p, np.ones(cols, np.float32), strategy="deep")
+    x = rng.standard_normal(cols).astype(np.float32)
+    y = np.asarray(spmv_plan(p, x))
+    np.testing.assert_allclose(y, _want(a, x), rtol=1e-4, atol=1e-5)
 
 
-def test_stream_cliff_warns(rng):
-    cols = (spmv_pallas.DEEP_MAX_BLOCKS + 1) * 128
+def test_wide_plan_selects_sell_silently(rng):
+    cols = 2049 * 128
     a = random_csr(rng, 32, cols, density=0.0004)
     p = planmod.build_sell_plan(a)
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
-        assert select_strategy(p) == "stream"
-    assert any("stream" in str(x.message) for x in w)
+        assert select_strategy(p) == "sell"
+    assert not w
 
 
 @pytest.mark.parametrize("semiring", ["min_plus", "or_and"])
@@ -136,7 +143,8 @@ def test_cached_semirings(rng, semiring):
     from spmv_vector_cache_tpu.formats.containers import CSR
     a = CSR(data=data.astype(np.float32), indices=a.indices,
             indptr=a.indptr, shape=a.shape)
-    p = planmod.auto_plan(a, semiring=semiring)
+    from spmv_vector_cache_tpu.ops import semiring as sr
+    p = build_cached_plan(a, pad_value=sr.get(semiring).zero)
     assert isinstance(p, CachedPlan)
     x = np.abs(rng.standard_normal(a.shape[1])).astype(np.float32)
     if semiring == "or_and":
@@ -150,7 +158,7 @@ def test_operator_cached_integration(rng):
     from spmv_vector_cache_tpu.ops.operator import SparseOperator
 
     a = powerlaw_cols_csr(rng, rows=16384, cols=32768, nnz_row=32)
-    op = SparseOperator.from_matrix(a)
+    op = SparseOperator(build_cached_plan(a).to_device(), matrix=a)
     assert op.strategy == "cached"
     assert op.stats["strategy_cached"] == 1
     assert 0.0 < op.stats["cache_coverage"] <= 1.0

@@ -1,10 +1,9 @@
 """ChunkPlan family: skewed-row layout without the scatter epilogue.
 
-Covers the round-5 redesign (formats/chunk.py, ops/lane_perm.py,
-ops/spmv_pallas._spmv_chunk): correctness vs the numpy reference across
-structure classes, the lane-unpermute kernel in isolation, bucket
-SellPlan validity, semirings, duplicates, and the auto_plan routing.
-Runs in Pallas interpret mode on CPU (tests/conftest.py policy).
+Covers formats/chunk.py and ops/spmv_exec._spmv_chunk: correctness vs
+the numpy reference across structure classes, the lane un-permutation in
+isolation, bucket SellPlan validity, semirings, duplicates, and the
+auto_plan routing.
 """
 
 import numpy as np
@@ -17,7 +16,7 @@ from spmv_vector_cache_tpu.formats.containers import COO
 from spmv_vector_cache_tpu.formats.convert import coo_to_csr
 from spmv_vector_cache_tpu.formats.plan import auto_plan, validate_plan
 from spmv_vector_cache_tpu.ops import reference
-from spmv_vector_cache_tpu.ops.spmv_pallas import spmv_plan
+from spmv_vector_cache_tpu.ops.spmv_exec import spmv_plan
 
 RNG = np.random.default_rng(7)
 
@@ -39,7 +38,7 @@ def _check(a, plan=None, rtol=1e-5):
     assert plan is not None
     x = RNG.standard_normal(a.shape[1]).astype(np.float32)
     want = reference.spmv_numpy(a, x.astype(np.float64))
-    y = np.asarray(spmv_plan(plan, x, interpret=True))
+    y = np.asarray(spmv_plan(plan, x))
     err = np.abs(y - want).max() / max(1.0, np.abs(np.asarray(want)).max())
     assert err < rtol, err
     return plan
@@ -69,9 +68,9 @@ def test_each_bucket_standalone_matches_reference():
     want = reference.spmv_numpy(a, x.astype(np.float64))
     total = np.zeros(a.shape[0])
     for b in p.buckets:
-        total += np.asarray(spmv_plan(b, x, interpret=True),
+        total += np.asarray(spmv_plan(b, x),
                             np.float64)
-    fast = np.asarray(spmv_plan(p, x, interpret=True))
+    fast = np.asarray(spmv_plan(p, x))
     hv = fast - total                       # heavy contribution
     assert np.abs(total + hv - want).max() / \
         max(1.0, np.abs(want).max()) < 1e-5
@@ -92,8 +91,7 @@ def test_duplicates_merge():
     a = coo_to_csr(COO(data=np.array([1., 2., 3., 4., 5.], np.float32),
                        row=r, col=c, shape=(200, 200)))
     p = build_chunk_plan(a)
-    y = np.asarray(spmv_plan(p, np.ones(200, np.float32),
-                             interpret=True))
+    y = np.asarray(spmv_plan(p, np.ones(200, np.float32)))
     assert abs(y[0] - 6) < 1e-5 and abs(y[1] - 9) < 1e-5
     assert p.stats.nnz == 5                  # metric keeps original nnz
 
@@ -131,7 +129,7 @@ def test_ultra_sparse_heavy():
     p = build_chunk_plan(a)
     x = rng.standard_normal(n).astype(np.float32)
     want = reference.spmv_numpy(a, x.astype(np.float64))
-    y = np.asarray(spmv_plan(p, x, interpret=True))
+    y = np.asarray(spmv_plan(p, x))
     assert np.abs(y - want).max() / max(1.0, np.abs(want).max()) < 1e-5
 
 
@@ -152,7 +150,7 @@ def test_semiring_min_plus():
     p = build_chunk_plan(a, pad_value=float(s.zero),
                          merge_duplicates=False)
     x = RNG.standard_normal(a.shape[1]).astype(np.float32)
-    y = np.asarray(spmv_plan(p, x, interpret=True, semiring="min_plus"))
+    y = np.asarray(spmv_plan(p, x, semiring="min_plus"))
     indptr = np.asarray(a.indptr)
     indices = np.asarray(a.indices)
     data = np.asarray(a.data, np.float64)
@@ -167,7 +165,7 @@ def test_semiring_min_plus():
 
 
 def test_lane_unpermute_kernel():
-    from spmv_vector_cache_tpu.ops.lane_perm import lane_unpermute
+    from spmv_vector_cache_tpu.ops.spmv_exec import lane_unpermute
 
     rng = np.random.default_rng(2)
     S = 16
@@ -177,15 +175,23 @@ def test_lane_unpermute_kernel():
     for w0 in range(0, S * 128, 1024):
         perm[w0:w0 + 1024] = w0 + rng.permutation(1024)
     idx = (perm - (np.arange(S * 128) // 1024) * 1024).astype(np.int16)
-    out = np.asarray(lane_unpermute(y2d, idx.reshape(S, 128),
-                                    interpret=True))
+    out = np.asarray(lane_unpermute(y2d, idx.reshape(S, 128)))
     assert np.array_equal(out.reshape(-1), y2d.reshape(-1)[perm])
 
 
 def test_auto_plan_routes_powerlaw_to_chunk():
+    """The chunk plan is a candidate for skewed rows with bounded spans;
+    on the GPU cost model its per-bucket launches and the segment sum over
+    every tile lose to the split+sigma SELL plan at this size (it used to
+    win), so the planner keeps the SELL plan."""
+    from spmv_vector_cache_tpu.formats.costmodel import estimate_seconds
+    from spmv_vector_cache_tpu.formats.plan import SellPlan
+
     a = _pareto_banded(n=8192, seed=13, cap=4096)
     p = auto_plan(a)
-    assert isinstance(p, ChunkPlan)
+    assert isinstance(p, SellPlan) and p.stats.num_splits > 0
+    cp = build_chunk_plan(a)
+    assert estimate_seconds(p) <= estimate_seconds(cp)
 
 
 def test_to_device_roundtrip_pytree():

@@ -1,4 +1,4 @@
-"""SELL plans + Pallas kernels (interpret mode on CPU)."""
+"""SELL plans + the SELL gather-reduce executor."""
 
 import os
 
@@ -8,7 +8,7 @@ import pytest
 from spmv_vector_cache_tpu.formats import convert, plan as planmod, refio
 from spmv_vector_cache_tpu.formats.containers import COO
 from spmv_vector_cache_tpu.formats.convert import coo_to_csr
-from spmv_vector_cache_tpu.ops import reference, spmv_pallas, strategy
+from spmv_vector_cache_tpu.ops import reference, spmv_exec, strategy
 from tests.conftest import REFERENCE_MATRICES, random_csr, reference_available
 
 needs_reference = pytest.mark.skipif(
@@ -106,30 +106,31 @@ def test_auto_plan_tiny_cost_backstop():
     assert isinstance(p, CooTail)
     assert estimate_seconds(p) < 1e-3
     x = np.ones(256, np.float32)
-    y = np.asarray(spmv_pallas.spmv_plan(p.to_device(), x))
+    y = np.asarray(spmv_exec.spmv_plan(p.to_device(), x))
     np.testing.assert_allclose(y, dense @ x, rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
-# kernel correctness (interpret mode)
+# executor correctness
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("strat", ["window", "stream"])
-def test_kernels_match_reference(rng, strat):
+@pytest.mark.parametrize("layout", [{}, {"window_group_tiles": 1}])
+def test_kernels_match_reference(rng, layout):
     a = random_csr(rng, 500, 400, density=0.03)
     x = rng.standard_normal(400).astype(np.float32)
-    p = planmod.build_sell_plan(a).to_device()
-    y = np.asarray(spmv_pallas.spmv_plan(p, x, strategy=strat))
+    p = planmod.build_sell_plan(a, **layout).to_device()
+    y = np.asarray(spmv_exec.spmv_plan(p, x))
     np.testing.assert_allclose(y, _want(a, x), rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("strat", ["window", "stream"])
-def test_kernels_with_split_sigma(rng, strat):
+@pytest.mark.parametrize("layout", [{"split": 8, "sigma": 512},
+                                    {"split": 16, "sigma": 128}])
+def test_kernels_with_split_sigma(rng, layout):
     a = random_csr(rng, 400, 300, density=0.05)
     x = rng.standard_normal(300).astype(np.float32)
-    p = planmod.build_sell_plan(a, split=8, sigma=512).to_device()
+    p = planmod.build_sell_plan(a, **layout).to_device()
     assert not p.identity_map
-    y = np.asarray(spmv_pallas.spmv_plan(p, x, strategy=strat))
+    y = np.asarray(spmv_exec.spmv_plan(p, x))
     np.testing.assert_allclose(y, _want(a, x), rtol=2e-5, atol=2e-5)
 
 
@@ -138,7 +139,7 @@ def test_kernel_striped_window(rng):
     x = rng.standard_normal(5000).astype(np.float32)
     p = planmod.build_sell_plan(a, stripe_width=512,
                                 max_window_blocks=4).to_device()
-    y = np.asarray(spmv_pallas.spmv_plan(p, x, strategy="window"))
+    y = np.asarray(spmv_exec.spmv_plan(p, x))
     np.testing.assert_allclose(y, _want(a, x), rtol=2e-5, atol=2e-5)
 
 
@@ -154,7 +155,7 @@ def test_kernel_banded_sliding_window(rng):
     p = planmod.auto_plan(a, allow_dia=False)
     assert p.stats.window_blocks > 0                   # banded -> feasible
     assert p.stats.num_stripes == 1                    # no striping needed
-    y = np.asarray(spmv_pallas.spmv_plan(p.to_device(), x, strategy="window"))
+    y = np.asarray(spmv_exec.spmv_plan(p.to_device(), x))
     np.testing.assert_allclose(y, _want(a, x), rtol=2e-5, atol=2e-5)
 
 
@@ -165,9 +166,8 @@ def test_kernel_empty_rows(rng):
     m = convert.from_scipy(sp.csr_matrix(dense))
     x = rng.standard_normal(100).astype(np.float32)
     p = planmod.build_sell_plan(m).to_device()
-    for strat in ("window", "stream"):
-        y = np.asarray(spmv_pallas.spmv_plan(p, x, strategy=strat))
-        np.testing.assert_allclose(y, _want(m, x), rtol=2e-5, atol=2e-5)
+    y = np.asarray(spmv_exec.spmv_plan(p, x))
+    np.testing.assert_allclose(y, _want(m, x), rtol=2e-5, atol=2e-5)
 
 
 @needs_reference
@@ -178,41 +178,34 @@ def test_kernels_vs_golden(name):
     gold = refio.load_golden(d)
     p = planmod.auto_plan(a).to_device()
     x = np.ones(a.shape[1], dtype=np.float32)
-    y = np.asarray(spmv_pallas.spmv_plan(p, x, strategy="auto"))
+    y = np.asarray(spmv_exec.spmv_plan(p, x))
     np.testing.assert_allclose(y, gold, rtol=1e-4, atol=1e-4)
 
 
-def test_window_infeasible_raises(rng):
+def test_window_infeasible_plan_executes(rng):
+    """A layout with no bounded column window (stats.window_blocks == 0)
+    runs through the same gather executor."""
     a = random_csr(rng, 200, 40000, density=0.002)
-    p = planmod.build_sell_plan(a, max_window_blocks=2).to_device()
-    if p.stats.window_blocks == 0:
-        with pytest.raises(ValueError, match="infeasible"):
-            spmv_pallas.spmv_plan(p, np.ones(40000, np.float32),
-                                  strategy="window")
+    p = planmod.build_sell_plan(a, max_window_blocks=2)
+    assert p.stats.window_blocks == 0
+    x = rng.standard_normal(40000).astype(np.float32)
+    y = np.asarray(spmv_exec.spmv_plan(p.to_device(), x))
+    np.testing.assert_allclose(y, _want(a, x), rtol=2e-5, atol=2e-5)
 
 
 # ---------------------------------------------------------------------------
-# strategy selection
+# executor selection
 # ---------------------------------------------------------------------------
 
 def test_select_strategy(rng):
     a = random_csr(rng, 100, 100, density=0.1)
     p = planmod.build_sell_plan(a)
-    assert strategy.select_strategy(p) == "window"
+    assert strategy.select_strategy(p) == "sell"
     wide = random_csr(rng, 100, 60000, density=0.001)
     pw = planmod.build_sell_plan(wide, max_window_blocks=2)
-    if pw.stats.window_blocks == 0:
-        # 469 x-blocks: past the unrolled resident cap, served by the
-        # deep fori-loop kernel (never the 0.1 Gnnz/s stream silently)
-        assert strategy.select_strategy(pw) == "deep"
-
-
-def test_autotune_runs(rng):
-    a = random_csr(rng, 256, 256, density=0.05)
-    p = planmod.build_sell_plan(a).to_device()
-    x = np.ones(256, np.float32)
-    res = strategy.autotune(p, x, iters=1)
-    assert "stream" in res and "window" in res
+    # no window, no special executor: every SELL layout gathers alike
+    assert pw.stats.window_blocks == 0
+    assert strategy.select_strategy(pw) == "sell"
 
 
 # ---------------------------------------------------------------------------
@@ -256,26 +249,23 @@ def test_unsorted_csr_is_sorted_before_planning(rng):
     shuffled = CSR(data=dat, indices=idx, indptr=a.indptr, shape=a.shape)
     p = planmod.build_sell_plan(shuffled)
     x = rng.standard_normal(200).astype(np.float32)
-    y = np.asarray(spmv_pallas.spmv_plan(p.to_device(), x, strategy="window"))
+    y = np.asarray(spmv_exec.spmv_plan(p.to_device(), x))
     np.testing.assert_allclose(y, _want(a, x), rtol=2e-5, atol=2e-5)
 
 
 def test_bfloat16_mixed_precision_sell(rng):
-    """bf16 value stream in the SELL kernels: with int16 in-window offsets
-    the whole nonzero stream is 4 B/nnz; x and the accumulator stay f32
-    (mirrors the DIA kernel's bf16 discipline)."""
+    """bf16 value stream in the SELL executor: x and the accumulator stay
+    f32 (mirrors the DIA executor's bf16 discipline)."""
     import jax.numpy as jnp
 
     a = random_csr(rng, 700, 400, density=0.03)
     x = rng.standard_normal(400).astype(np.float32)
     want = _want(a, x)
-    for strat in ("window", "stream"):
-        p = planmod.build_sell_plan(a, value_dtype=jnp.bfloat16).to_device()
-        y = np.asarray(spmv_pallas.spmv_plan(p, x, strategy=strat,
-                                             interpret=True))
-        assert y.dtype == np.float32                   # f32 accumulation
-        rel = np.abs(y - want).max() / max(1.0, np.abs(want).max())
-        assert rel < 2e-2                              # bf16 value rounding
+    p = planmod.build_sell_plan(a, value_dtype=jnp.bfloat16).to_device()
+    y = np.asarray(spmv_exec.spmv_plan(p, x))
+    assert y.dtype == np.float32                   # f32 accumulation
+    rel = np.abs(y - want).max() / max(1.0, np.abs(want).max())
+    assert rel < 2e-2                              # bf16 value rounding
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +293,7 @@ def test_uniform_split_too_many_parts_raises():
 def test_auto_plan_long_regular_rows_no_crash():
     a = _long_regular_rows()
     p = planmod.auto_plan(a, allow_dia=False)      # used to ZeroDivision
-    assert p.stats.nnz == a.nnz
+    assert strategy.plan_nnz(p) == a.nnz
     x = np.ones(a.shape[1], np.float32)
-    y = np.asarray(spmv_pallas.spmv_plan(p, x))
+    y = np.asarray(spmv_exec.spmv_plan(p, x))
     np.testing.assert_allclose(y, _want(a, x), rtol=1e-5)

@@ -1,5 +1,5 @@
-"""Semiring-parameterized Pallas kernels (the reference's generalized
-semiring SpMV, SemiringOp.scala:5-154, on the TPU datapath).
+"""Semiring-parameterized executors (the reference's generalized
+semiring SpMV, SemiringOp.scala:5-154).
 
 The reference swaps hardware operator implementations behind one
 (makeAdd, makeMul) interface; here the SELL kernels take a semiring name
@@ -14,7 +14,7 @@ from spmv_vector_cache_tpu.formats import convert
 from spmv_vector_cache_tpu.formats.plan import auto_plan, build_sell_plan
 from spmv_vector_cache_tpu.ops import reference, semiring as sr
 from spmv_vector_cache_tpu.ops.operator import SparseOperator
-from spmv_vector_cache_tpu.ops.spmv_pallas import spmv_plan
+from spmv_vector_cache_tpu.ops.spmv_exec import spmv_plan
 from tests.conftest import random_csr
 
 
@@ -32,26 +32,27 @@ def _minplus_want(a, x):
     return y
 
 
-@pytest.mark.parametrize("strat", ["window", "stream"])
-def test_min_plus_kernels(rng, strat):
+@pytest.mark.parametrize("layout", [{}, {"sigma": 128}])
+def test_min_plus_kernels(rng, layout):
     a = random_csr(rng, 200, 150, density=0.06)
     x = rng.standard_normal(150).astype(np.float32)
-    p = build_sell_plan(a, pad_value=np.inf).to_device()
-    y = np.asarray(spmv_plan(p, x, strategy=strat, semiring="min_plus"))
+    p = build_sell_plan(a, pad_value=np.inf, **layout).to_device()
+    y = np.asarray(spmv_plan(p, x, semiring="min_plus"))
     want = _minplus_want(a, x)
     finite = np.isfinite(want)
     np.testing.assert_allclose(y[finite], want[finite], rtol=2e-5, atol=2e-5)
     assert (y[~finite] > 1e30).all()       # empty rows read as unreachable
 
 
-@pytest.mark.parametrize("strat", ["window", "stream"])
-def test_min_plus_with_split_sigma(rng, strat):
+@pytest.mark.parametrize("split", [8, 16])
+def test_min_plus_with_split_sigma(rng, split):
     """Tropical algebra through the split/sigma fixup path."""
     a = random_csr(rng, 300, 200, density=0.05)
     x = rng.standard_normal(200).astype(np.float32)
-    p = build_sell_plan(a, split=8, sigma=512, pad_value=np.inf).to_device()
+    p = build_sell_plan(a, split=split, sigma=512,
+                        pad_value=np.inf).to_device()
     assert not p.identity_map
-    y = np.asarray(spmv_plan(p, x, strategy=strat, semiring="min_plus"))
+    y = np.asarray(spmv_plan(p, x, semiring="min_plus"))
     want = _minplus_want(a, x)
     finite = np.isfinite(want)
     np.testing.assert_allclose(y[finite], want[finite], rtol=2e-5, atol=2e-5)
@@ -66,8 +67,7 @@ def test_or_and_reachability(rng):
     a = convert.from_scipy(m)
     frontier = (rng.random(n) < 0.05).astype(np.float32)
     p = build_sell_plan(a, pad_value=0.0).to_device()
-    y = np.asarray(spmv_plan(p, frontier, strategy="window",
-                             semiring="or_and"))
+    y = np.asarray(spmv_plan(p, frontier, semiring="or_and"))
     want = ((dense.astype(bool) @ frontier.astype(bool)) > 0)
     np.testing.assert_array_equal(y > 0, want)
 
@@ -76,7 +76,7 @@ def test_max_plus_matches_reference_executor(rng):
     a = random_csr(rng, 150, 150, density=0.08)
     x = rng.standard_normal(150).astype(np.float32)
     p = build_sell_plan(a, pad_value=-np.inf).to_device()
-    y = np.asarray(spmv_plan(p, x, strategy="window", semiring="max_plus"))
+    y = np.asarray(spmv_plan(p, x, semiring="max_plus"))
     want = np.asarray(reference.spmv(a, x, semiring=sr.MAX_PLUS))
     finite = np.isfinite(want)
     np.testing.assert_allclose(y[finite], want[finite], rtol=2e-5, atol=2e-5)

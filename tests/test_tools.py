@@ -58,7 +58,7 @@ def test_benchapp_sweep_csv():
     rc = benchapp.run_sweep(
         [os.path.join(REFERENCE_MATRICES, "i64"),
          os.path.join(REFERENCE_MATRICES, "circuit204")],
-        ["auto"], iters=1, out=buf)
+        iters=1, out=buf)
     assert rc == 0
     lines = buf.getvalue().strip().splitlines()
     assert lines[0].startswith("matrix,strategy,status")
@@ -76,7 +76,7 @@ def test_benchapp_sweep_csv():
 
 def test_benchapp_bad_dir():
     buf = io.StringIO()
-    rc = benchapp.run_sweep(["/nonexistent"], ["auto"], iters=1, out=buf)
+    rc = benchapp.run_sweep(["/nonexistent"], iters=1, out=buf)
     assert rc == 1
 
 
@@ -97,3 +97,33 @@ def test_vecdiff_exact_and_mismatch(tmp_path):
     # tolerance mode forgives it
     buf = io.StringIO()
     assert vecdiff.diff(gold, str(bad), rtol=1e-6, atol=1e-6, out=buf) == 0
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py: refuses a host without a GPU, and rehearses on the CPU
+# ---------------------------------------------------------------------------
+
+def _run_chip_smoke(*args, timeout=900):
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    return subprocess.run([sys.executable, os.path.join(repo,
+                                                        "chip_smoke.py"),
+                           *args], env=env, cwd=repo, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def test_chip_smoke_refuses_without_gpu():
+    proc = _run_chip_smoke()
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert "no GPU" in proc.stderr
+
+
+def test_chip_smoke_rehearsal_passes_on_cpu():
+    proc = _run_chip_smoke("--rehearse")
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "all phases passed" in proc.stdout
+    assert '"ok"' not in proc.stdout          # a rehearsal prints no result

@@ -8,7 +8,7 @@ import scipy.sparse as sp
 
 from spmv_vector_cache_tpu.formats.convert import from_scipy
 from spmv_vector_cache_tpu.ops import reference
-from spmv_vector_cache_tpu.ops.spmv_pallas import spmv_plan
+from spmv_vector_cache_tpu.ops.spmv_exec import spmv_plan
 from spmv_vector_cache_tpu.ops.tune import (autotune_plan, plan_signature,
                                             _candidates)
 
@@ -35,12 +35,14 @@ def test_candidates_cover_plan_types(rng):
     names = [n for n, _, _ in _candidates(a, base, np.float32,
                                           "plus_times")]
     assert "auto" in names and len(names) >= 2
-    # a SELL plan exposes the kernel-geometry knobs
-    sell = auto_plan(a, allow_dia=False)
-    names_s = [n for n, _, _ in _candidates(a, sell, np.float32,
+    assert "sell" in names                 # DIA vs SELL
+    # a uniform-split SELL plan exposes the split factor
+    a27, _ = _banded(rng, nd=27)
+    sell = auto_plan(a27, allow_dia=False)
+    assert sell.stats.uniform_parts
+    names_s = [n for n, _, _ in _candidates(a27, sell, np.float32,
                                             "plus_times")]
-    assert any(n.startswith(("groups_per_step", "window_group_tiles",
-                             "uniform_split")) for n in names_s)
+    assert any(n.startswith("uniform_split") for n in names_s)
 
 
 def test_autotune_plan_correct_and_persisted(rng, tmp_path):
@@ -49,7 +51,7 @@ def test_autotune_plan_correct_and_persisted(rng, tmp_path):
     res = autotune_plan(a, iters=2, store=store)
     assert res.table and res.best in [e.name for e in res.table]
     x = rng.standard_normal(a.shape[1]).astype(np.float32)
-    y = np.asarray(spmv_plan(res.plan.to_device(), x, interpret=True))
+    y = np.asarray(spmv_plan(res.plan.to_device(), x))
     want = reference.spmv_numpy(a, x.astype(np.float64))
     np.testing.assert_allclose(y, want, rtol=1e-4, atol=1e-4)
     # persisted: the signature is in the store, and a second call
@@ -76,18 +78,16 @@ def test_operator_tune_records_table(rng):
 
 
 def test_groups_per_step_rounds_to_fold_multiple(rng):
-    """An explicit groups_per_step that would break the in-kernel slice
-    fold (NG % 8 != 0) is rounded up instead of silently demoting to
-    per-tile output (r3 weak #7)."""
+    """An explicit groups_per_step pads the tile count to a multiple of
+    whole window groups."""
     a, m = _banded(rng, n=2048, nd=7)
     from spmv_vector_cache_tpu.formats.plan import build_sell_plan
 
     p = build_sell_plan(a, groups_per_step=3)
     st = p.stats
     assert st.groups_per_step % st.group_tiles == 0
-    NG = 8 * st.groups_per_step // st.group_tiles
-    assert NG % 8 == 0
+    assert st.num_tiles % (8 * st.groups_per_step) == 0
     x = rng.standard_normal(a.shape[1]).astype(np.float32)
-    y = np.asarray(spmv_plan(p.to_device(), x, interpret=True))
+    y = np.asarray(spmv_plan(p.to_device(), x))
     want = reference.spmv_numpy(a, x.astype(np.float64))
     np.testing.assert_allclose(y, want, rtol=1e-4, atol=1e-4)
